@@ -1,0 +1,143 @@
+"""Sorted similarity lists + kNN rating prediction (PyTorch port of
+``repro.core.knn``).
+
+Lists are stored ascending, so the "top" of a list is its tail.  Every
+sort is stable and every top-k puts the lower index first on ties
+(``repro_torch.sorting``), as the JAX reference's ``argsort``/``top_k`` do.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.similarity import row_norms, similarity_matrix
+from repro_torch.core.types import (CFState, SENTINEL, SENTINEL_GATE,
+                                    as_index)
+from repro_torch.kernels.knn_score.ops import knn_recommend_topn
+from repro_torch.sorting import argsort_rows, top_k
+
+# Rows per sort call when whole arenas are sorted: torch.sort returns int64
+# indices, 8.6 GB for a 32k x 32k arena in one piece.
+SORT_CHUNK_ROWS = 4096
+
+
+def sort_rows(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sort each row ascending (stable); returns (vals, idx) with idx int32."""
+    vals, idx = argsort_rows(S)
+    return vals, idx.to(torch.int32)
+
+
+def build_state(R: torch.Tensor, *, capacity_extra: int = 0,
+                measure: str = "cosine") -> CFState:
+    """Full similarity build: the traditional O(n^2 m) path, producing the
+    sorted lists the system maintains thereafter.  ``capacity_extra``
+    preallocates slots for onboarding bursts.  The arena lives on R's
+    device; rows are sorted in chunks of ``SORT_CHUNK_ROWS``."""
+    n, m = R.shape
+    N = n + capacity_extra
+    dev = R.device
+    S = similarity_matrix(R.float(), measure)
+    ratings = torch.zeros((N, m), dtype=torch.float32, device=dev)
+    ratings[:n] = R
+    sim_vals = torch.full((N, N), SENTINEL, dtype=torch.float32, device=dev)
+    sim_idx = torch.empty((N, N), dtype=torch.int32, device=dev)
+    for r0 in range(0, n, SORT_CHUNK_ROWS):
+        r1 = min(n, r0 + SORT_CHUNK_ROWS)
+        sim_vals[r0:r1, :n] = S[r0:r1]
+        sim_vals[r0:r1], sim_idx[r0:r1] = sort_rows(sim_vals[r0:r1])
+    del S
+    # All-SENTINEL padding rows: a stable sort is the identity permutation.
+    sim_idx[n:] = torch.arange(N, dtype=torch.int32, device=dev)
+    return CFState(ratings=ratings, norms=row_norms(ratings),
+                   sim_vals=sim_vals, sim_idx=sim_idx, n_active=n)
+
+
+def top_k_neighbors_batch(state: CFState, users, k: int
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B,) users -> ((B, k) sims, (B, k) int64 neighbour ids).
+
+    Slots past the real neighbour count (``k > n_active - 1``) carry
+    SENTINEL similarity and neighbour 0, so downstream gathers stay
+    in-bounds and weigh them zero.  Entries whose id points at an inactive
+    row, the user itself, or a SENTINEL value are masked out."""
+    users = as_index(users, state.device)
+    vals = state.sim_vals[users]
+    idx = state.sim_idx[users].long()
+    keep = ((idx != users[:, None]) & (idx < state.n_active)
+            & (vals > SENTINEL_GATE))
+    ranked = torch.where(keep, vals, SENTINEL)
+    kk = min(k, ranked.shape[1])
+    top_vals, pos = top_k(ranked, kk)
+    nbrs = torch.gather(idx, 1, pos)
+    if kk < k:                      # k beyond capacity: pad with dead slots
+        B = users.shape[0]
+        top_vals = torch.cat([top_vals, torch.full(
+            (B, k - kk), SENTINEL, dtype=top_vals.dtype,
+            device=top_vals.device)], dim=1)
+        nbrs = torch.cat([nbrs, torch.zeros((B, k - kk), dtype=nbrs.dtype,
+                                            device=nbrs.device)], dim=1)
+    nbrs = torch.where(top_vals > SENTINEL_GATE, nbrs, 0)
+    return top_vals, nbrs
+
+
+def top_k_neighbors(state: CFState, user, k: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(k,) highest-similarity neighbours of ``user`` (excluding self)."""
+    users = as_index(user, state.device)[None]
+    sims, nbrs = top_k_neighbors_batch(state, users, k)
+    return sims[0], nbrs[0]
+
+
+def predict_from_neighbors(state: CFState, sims: torch.Tensor,
+                           nbrs: torch.Tensor, item) -> torch.Tensor:
+    """Weighted average over precomputed neighbour lists: (k,) sims/nbrs
+    with a scalar item, or (B, k) with (B,) items.  SENTINEL slots weigh
+    zero."""
+    item = as_index(item, state.device)
+    r = state.ratings[nbrs, item[..., None]]
+    w = torch.where((r != 0) & (sims > 0), sims, 0.0)
+    denom = torch.sum(torch.abs(w), dim=-1)
+    return torch.where(denom > 0, torch.sum(w * r, dim=-1)
+                       / torch.clamp_min(denom, 1e-12), 0.0)
+
+
+def predict(state: CFState, user, item, k: int = 20) -> torch.Tensor:
+    """kNN weighted-average rating prediction r̂(u, i) over the top-k
+    neighbours of u that rated i."""
+    sims, nbrs = top_k_neighbors(state, user, k)
+    return predict_from_neighbors(state, sims, nbrs, item)
+
+
+def predict_batch(state: CFState, users, items, k: int = 20
+                  ) -> torch.Tensor:
+    """(B,) users x (B,) items -> (B,) predictions."""
+    sims, nbrs = top_k_neighbors_batch(state, users, k)
+    return predict_from_neighbors(state, sims, nbrs, items)
+
+
+def recommend_from_neighbors(state: CFState, user, sims: torch.Tensor,
+                             nbrs: torch.Tensor, n_rec: int = 10
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Neighbour-weighted item scores (seen items at -inf) and the top
+    ``n_rec``, through the knn_score kernel.  ``user`` scalar with (k,)
+    lists, or (B,) users with (B, k) lists."""
+    users = as_index(user, state.device)
+    one = users.dim() == 0
+    if one:
+        users, sims, nbrs = users[None], sims[None], nbrs[None]
+    vals, items = knn_recommend_topn(state.ratings, torch.clamp_min(sims, 0),
+                                     nbrs, users, n_rec)
+    return (vals[0], items[0]) if one else (vals, items)
+
+
+def recommend(state: CFState, user, k_neighbors: int = 20, n_rec: int = 10
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-``n_rec`` unseen items for ``user`` by neighbour-weighted score."""
+    sims, nbrs = top_k_neighbors(state, user, k_neighbors)
+    return recommend_from_neighbors(state, user, sims, nbrs, n_rec)
+
+
+def recommend_batch(state: CFState, users, k_neighbors: int = 20,
+                    n_rec: int = 10) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B,) users -> ((B, n_rec) scores, (B, n_rec) items)."""
+    sims, nbrs = top_k_neighbors_batch(state, users, k_neighbors)
+    return recommend_from_neighbors(state, users, sims, nbrs, n_rec)

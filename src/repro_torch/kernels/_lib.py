@@ -1,0 +1,141 @@
+"""Build and bind the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface and loaded with ``ctypes``.  A build
+happens at first use, into ``build/repro_torch/`` at the repository root,
+under a file name keyed by a hash of the source and the flags, so a changed
+source rebuilds and an unchanged one is reused.  ``build_all`` starts one
+``nvcc`` per source at once and waits for all of them.
+
+Nothing here runs at import: the CPU tests import every module, and this
+machine need not have ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+                       "to build the repro_torch CUDA kernels")
+
+
+class Kernel:
+    """One ``.cu`` source: its library, its C entry points and the count of
+    launches made through ``launch``."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.source = CSRC / f"{name}.cu"
+        self.launches = 0
+        self._lib: ctypes.CDLL | None = None
+
+    @property
+    def _stem(self) -> Path:
+        h = hashlib.sha256(self.source.read_bytes()
+                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        return BUILD_DIR / f"{self.name}-{h}"
+
+    @property
+    def library(self) -> Path:
+        return self._stem.with_suffix(".so")
+
+    @property
+    def build_log(self) -> Path:
+        """nvcc's output for the current library (``-Xptxas -v``:
+        registers, shared memory and spills of each kernel)."""
+        return self._stem.with_suffix(".log")
+
+    def _start_build(self) -> tuple | None:
+        """Start nvcc unless the library exists; returns what
+        ``_finish_build`` needs."""
+        if self.library.exists():
+            return None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = self.library.with_suffix(f".{os.getpid()}.tmp")
+        log = open(self.build_log, "w")
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                 str(self.source)],
+                                stdout=log, stderr=subprocess.STDOUT)
+        return proc, log, tmp
+
+    def _finish_build(self, started: tuple | None) -> None:
+        if started is None:
+            return
+        proc, log, tmp = started
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed for {self.source.name} "
+                               f"(rc={rc}):\n{self.build_log.read_text()}")
+        os.replace(tmp, self.library)
+
+    def load(self) -> ctypes.CDLL:
+        if self._lib is None:
+            self._finish_build(self._start_build())
+            self._lib = ctypes.CDLL(str(self.library))
+        return self._lib
+
+    def launch(self, fn: str, *args) -> None:
+        """Call C entry point ``fn`` on the current stream.  Arguments are
+        tensors (passed as device pointers) or ints; the stream goes last.
+        Raises if the launch was refused."""
+        lib = self.load()
+        cargs = []
+        for a in args:
+            if isinstance(a, torch.Tensor):
+                cargs.append(ctypes.c_void_p(a.data_ptr()))
+            else:
+                cargs.append(ctypes.c_int(int(a)))
+        cargs.append(ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        f = getattr(lib, fn)
+        f.argtypes = [type(c) for c in cargs]
+        f.restype = ctypes.c_int
+        rc = f(*cargs)
+        if rc != 0:
+            raise RuntimeError(f"{self.name}.{fn} launch failed: CUDA error "
+                               f"{rc}")
+        self.launches += 1
+
+
+SIMILARITY = Kernel("similarity")
+KNN_SCORE = Kernel("knn_score")
+LIST_MERGE = Kernel("list_merge")
+KERNELS = {k.name: k for k in (SIMILARITY, KNN_SCORE, LIST_MERGE)}
+
+
+def build_all() -> dict[str, str]:
+    """Build every kernel library at once (one ``nvcc`` per source, all
+    started together); returns each kernel's build log."""
+    procs = {name: k._start_build() for name, k in KERNELS.items()}
+    for name, k in KERNELS.items():
+        k._finish_build(procs[name])
+    for k in KERNELS.values():
+        k.load()
+    return {name: k.build_log.read_text() if k.build_log.exists() else ""
+            for name, k in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: k.launches for name, k in KERNELS.items()}

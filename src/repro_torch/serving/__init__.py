@@ -1,0 +1,21 @@
+"""Public serving surface of the port."""
+from repro_torch.serving.cf_server import (CFServer, OnboardResult,
+                                           ServerStats, LEVEL_DEGRADED,
+                                           LEVEL_SHED, LEVEL_TRADITIONAL,
+                                           LEVEL_TWINSEARCH)
+from repro_torch.serving.config import (LadderConfig, RotationConfig,
+                                        ServerConfig, SnapshotConfig,
+                                        WalConfig)
+from repro_torch.serving.dedup import (DedupPlan, dedup_batch, dedup_rows,
+                                       fan_out, prompt_hash)
+from repro_torch.serving.guard import (Quarantine, Rejection, RetryPolicy,
+                                       call_with_retry)
+
+__all__ = [
+    "CFServer", "OnboardResult", "ServerStats",
+    "ServerConfig", "SnapshotConfig", "WalConfig", "RotationConfig",
+    "LadderConfig",
+    "LEVEL_TWINSEARCH", "LEVEL_TRADITIONAL", "LEVEL_DEGRADED", "LEVEL_SHED",
+    "Quarantine", "Rejection", "RetryPolicy", "call_with_retry",
+    "DedupPlan", "dedup_batch", "dedup_rows", "fan_out", "prompt_hash",
+]

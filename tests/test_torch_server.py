@@ -1,0 +1,184 @@
+"""Port parity: the serving layer end to end — ``repro_torch`` CFServer on
+the CPU against the JAX CFServer, request by request.
+
+Tolerances: statuses, twin flags, user ids, sequence numbers and the
+counters of ``ServerStats`` exact; final lists under
+``bridge.lists_match`` at 1e-6; predictions within 1e-6; recommendations
+under ``bridge.ranked_match`` at 1e-6.  Probes: the port's
+``_draw_probes`` seam is patched to return the probes the JAX server draws
+from its key chain for the same request.  Both servers get a ladder
+monitor on a fixed virtual clock, so compile time in the reference cannot
+move the ladder.
+"""
+from __future__ import annotations
+
+import itertools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from repro.serving import CFServer as JServer
+from repro.serving import LadderConfig as JLadder
+from repro.serving import ServerConfig as JConfig
+from repro.serving import SnapshotConfig as JSnap
+from repro.testing.faults import poison_state
+from repro.training.elastic import StragglerMonitor as JMonitor
+from repro_torch.bridge import lists_match, ranked_match, state_to_numpy
+from repro_torch.serving import (CFServer, LadderConfig, LEVEL_SHED,
+                                 ServerConfig, SnapshotConfig, WalConfig)
+from repro_torch.training.elastic import StragglerMonitor
+from tests.conftest import make_ratings
+
+TOL = 1e-6
+COUNTERS = ("onboarded", "twin_hits", "fallbacks", "overflows", "rejected",
+            "shed", "errors", "rotations", "snapshots", "rollbacks",
+            "degradations", "queries", "query_batches", "query_degraded")
+
+
+def _clock():
+    ticks = itertools.count()
+    return lambda: float(next(ticks))
+
+
+def _pair(R, extra=8, c=4):
+    jcfg = JConfig(capacity_extra=extra, c_probes=c,
+                   snapshot=JSnap(every=5, check_every=1),
+                   ladder=JLadder(monitor=JMonitor(clock=_clock())))
+    tcfg = ServerConfig(capacity_extra=extra, c_probes=c,
+                        snapshot=SnapshotConfig(every=5, check_every=1),
+                        ladder=LadderConfig(
+                            monitor=StragglerMonitor(clock=_clock())))
+    jsrv = JServer(R, jcfg)
+    tsrv = CFServer(R, tcfg, device="cpu")
+
+    def jax_probes():
+        # What the JAX server draws next: split its key, randint the sub.
+        _, sub = jax.random.split(jsrv._key)
+        return torch.tensor(np.asarray(jax.random.randint(
+            sub, (tsrv.c,), 0, tsrv.n_base)))
+
+    tsrv._draw_probes = jax_probes
+    return jsrv, tsrv
+
+
+def _onboard_both(jsrv, tsrv, r):
+    b = tsrv.onboard_user(r)            # draws from the JAX key before use
+    a = jsrv.onboard_user(r)
+    assert (a.status, a.twin_found, a.user_id, a.seq, a.rotated) == \
+        (b.status, b.twin_found, b.user_id, b.seq, b.rotated)
+    return b
+
+
+def _assert_states(jsrv, tsrv):
+    j = {k: np.asarray(getattr(jsrv.state, k))
+         for k in ("sim_vals", "sim_idx", "ratings", "n_active")}
+    t = state_to_numpy(tsrv.state)
+    assert int(t["n_active"]) == int(j["n_active"])
+    np.testing.assert_array_equal(t["ratings"], j["ratings"])
+    assert lists_match(j["sim_vals"], j["sim_idx"], t["sim_vals"],
+                       t["sim_idx"], TOL) is None
+
+
+def test_server_script_parity(rng):
+    R = make_ratings(rng, n=120, m=40)
+    fresh = make_ratings(np.random.default_rng(21), n=8, m=40)
+    jsrv, tsrv = _pair(R)
+    script = [R[3], R[3], R[17], fresh[0], fresh[0], fresh[1], R[40],
+              fresh[2],                          # fills the 8 free slots
+              R[3], fresh[3], R[77], fresh[1]]   # flood: rotation + more
+    res = [_onboard_both(jsrv, tsrv, r) for r in script]
+    assert tsrv.stats.rotations == 1 and res[8].rotated
+    assert tsrv.stats.twin_hits > 0 and tsrv.stats.fallbacks > 0
+    _assert_states(jsrv, tsrv)
+
+    # Reads, with one invalid user id and one invalid item quarantined.
+    users = [0, 5, 124, 10_000, 3, 3, 127]
+    jrec = jsrv.recommend_batch(users, n=6, k_neighbors=7)
+    trec = tsrv.recommend_batch(users, n=6, k_neighbors=7)
+    assert trec[3] == jrec[3] == []
+    for a, b in zip(jrec, trec):
+        if a:
+            assert ranked_match([[s for _, s in a]], [[i for i, _ in a]],
+                                [[s for _, s in b]], [[i for i, _ in b]],
+                                TOL) is None
+    items = [1, 2, 3, 4, 99, 6, 7]
+    np.testing.assert_allclose(tsrv.predict_batch(users, items, k=7),
+                               jsrv.predict_batch(users, items, k=7),
+                               atol=TOL)
+    assert tsrv.predict(5, 2, k=7) == pytest.approx(
+        jsrv.predict(5, 2, k=7), abs=TOL)
+
+    # A poisoned arena rolls back to the last good snapshot.
+    poison_state(jsrv, rows=[2, 17])
+    tsrv.state.sim_vals[[2, 17]] = float("nan")
+    res = _onboard_both(jsrv, tsrv, fresh[4])
+    assert res.status == "rolled_back" and res.user_id == -1
+    _assert_states(jsrv, tsrv)
+    res = _onboard_both(jsrv, tsrv, fresh[4])
+    assert res.status == "ok"
+    _assert_states(jsrv, tsrv)
+
+    jstats, tstats = jsrv.stats.summary(), tsrv.stats.summary()
+    assert {k: tstats[k] for k in COUNTERS} == \
+        {k: jstats[k] for k in COUNTERS}
+    assert tstats["rollbacks"] == 1 and tstats["rejected"] == 3
+
+
+def test_rollback_restores_snapshot_clone(rng):
+    """The port writes rows in place: rolling back twice must restore the
+    same good state both times (the snapshot is never aliased)."""
+    R = make_ratings(rng, n=40, m=12)
+    srv = CFServer(R, ServerConfig(capacity_extra=4, snapshot=SnapshotConfig(
+        every=1000, check_every=1)), device="cpu")
+    good = state_to_numpy(srv.state)
+    for _ in range(2):
+        srv.onboard_user(R[1])
+        srv.state.sim_vals[0] = float("nan")
+        assert srv.onboard_user(R[2]).status == "rolled_back"
+        now = state_to_numpy(srv.state)
+        for key in ("sim_vals", "sim_idx", "ratings", "norms"):
+            np.testing.assert_array_equal(now[key], good[key])
+    assert srv.stats.rollbacks == 2
+
+
+def test_shed_rung_degrades_reads(rng):
+    R = make_ratings(rng, n=40, m=12)
+    srv = CFServer(R, ServerConfig(capacity_extra=4), device="cpu")
+    full = srv.recommend(3, n=4, k_neighbors=8)
+    srv.level = LEVEL_SHED
+    srv._shed_until = float("inf")
+    assert srv.onboard_user(R[1]).status == "shed"
+    assert len(srv.recommend(3, n=4, k_neighbors=8)) == len(full)
+    assert srv.stats.query_degraded == 1
+
+
+def test_malformed_payloads_are_refused(rng):
+    R = make_ratings(rng, n=40, m=12)
+    srv = CFServer(R, ServerConfig(capacity_extra=4), device="cpu")
+    bad = np.full(12, np.nan, np.float32)
+    assert srv.onboard_user(bad).status == "rejected"
+    assert srv.onboard_user(np.zeros(5)).status == "rejected"
+    assert srv.quarantine.summary()["total"] == 2
+
+
+@pytest.mark.parametrize("cfg", [
+    ServerConfig(wal=WalConfig(dir="wal")),
+    ServerConfig(snapshot=SnapshotConfig(dir="snap")),
+    ServerConfig(replication=object()),
+    ServerConfig.from_kwargs(rotation_budget_rows=4),
+])
+def test_unported_config_raises(rng, cfg):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        CFServer(make_ratings(rng, n=20, m=8), cfg, device="cpu")
+
+
+def test_unported_entry_points_raise(rng):
+    srv = CFServer(make_ratings(rng, n=20, m=8), device="cpu")
+    for call in (lambda: srv.add_rating(0, 1, 3.0),
+                 lambda: srv.step_maintenance(),
+                 lambda: CFServer.recover(np.zeros((2, 2)))):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
