@@ -17,13 +17,24 @@ Phases, in order; the script exits non-zero as soon as a check fails:
                more onboard that rotates the arena, ``recommend_batch`` and
                ``predict_batch`` for 256 users, and a 32-user traditional
                burst on a clone of the state.  The launch counts are
-               zeroed just before and read just after: every kernel must
-               have run.
-  5. movielens — the same request script at 943 x 1,682 on the card and on
+               zeroed just before and read just after: every kernel of the
+               path (similarity, list_merge, knn_score) must have run.
+  5. kernel API — ``repro_torch.kernels.twin_probe``, ``verify_rows`` and
+               ``embedding_bag`` at shapes the system runs: the 8 probe
+               rows of the server's final arena in user order (a planted
+               twin's and a fresh profile's probe sims), the server's
+               458-row candidate block for a planted twin (f32 and int8),
+               and xDeepFM's 60.8M x 10 table under ``serve_bulk`` traffic
+               (262,144 bags x 8 Zipf ids).  Counts zeroed before, read
+               after: each of the three must have run.  Then each output
+               against its plain version (exact), a ragged small case, and
+               cold-L2 timings beside the bound and a library yardstick.
+  6. movielens — the same request script at 943 x 1,682 on the card and on
                the CPU (the plain versions), held to the parity tests'
                tolerances.
-  6. summary — ``{"kernels": [...]}``, the nvidia-smi line, and last
-               ``{"ok": true, "device": {...}}``.
+  7. summary — ``{"kernels": [...]}`` (all six kernels, each with the
+               launches of the phase that drove it), the nvidia-smi line,
+               and last ``{"ok": true, "device": {...}}``.
 
 It imports neither ``jax`` nor the JAX package, and refuses to run (exit 2)
 without a CUDA device or without ``src/repro_torch`` beside it.
@@ -53,6 +64,19 @@ MERGE_SHAPE = (N_USERS, N_USERS + 2 * CAPACITY_EXTRA, CAPACITY_EXTRA)
 SIM_NQ = 64
 KNN_B, KNN_K = 256, 20
 BURST = 32
+MAIN_PATH = ("similarity", "list_merge", "knn_score")
+API_KERNELS = ("twin_probe", "verify_rows", "embedding_bag")
+# xDeepFM (configs/xdeepfm.py, configs/_fields.py::CRITEO39, taken as
+# numbers): 39 power-law fields, 60,802,963 rows in all, the first 10M; 10
+# columns.  Traffic: RECSYS_SHAPES "serve_bulk" (262,144 rows per batch) of
+# the multi-hot field, 8 Zipf(1.3) ids each, valid with probability 0.6
+# (data/recsys_stream.py).
+XDEEPFM_ROWS, XDEEPFM_FIELD0, XDEEPFM_DIM = 60_802_963, 10_000_000, 10
+SERVE_BULK, MULTI_HOT, MULTI_VALID, ZIPF_A = 262_144, 8, 0.6, 1.3
+# The flush before each cold call: far more than the H100's 50 MB L2, and
+# long enough on the card (~0.7 ms) that the host has enqueued the call
+# before the start event fires, so the events time the card's work.
+L2_FLUSH_BYTES = 2 << 30
 
 
 class CheckFailed(Exception):
@@ -84,6 +108,41 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cold_ms(fn, reps: int, flush) -> float:
+    """Mean milliseconds of ``fn`` by CUDA events around each run, with
+    ``flush`` (a write larger than L2) before each one, after one warm-up:
+    a call that finds its inputs in device memory, not in L2.  The flush
+    keeps the stream busy while the host enqueues ``fn``, so a wrapper's
+    host work stays outside the events (``call_ms`` measures it)."""
+    import torch
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def call_ms(fn, reps: int) -> float:
+    """Mean host milliseconds per call of ``fn`` over ``reps`` calls back to
+    back, ending in a synchronize: for a kernel shorter than its wrapper's
+    host work, the wrapper's cost per call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
@@ -307,7 +366,7 @@ def douban_width_ratings():
                          max(n_ratings, N_USERS * 5), min_per_user=5)
 
 
-def run_server(torch, dev, R_host) -> dict:
+def run_server(torch, dev, R_host) -> tuple:
     import numpy as np
     from repro_torch.core import clone_state, onboard_batch_traditional
     from repro_torch.data.synthetic import plant_twins
@@ -409,8 +468,9 @@ def run_server(torch, dev, R_host) -> dict:
     check(not torch.backends.cuda.matmul.allow_tf32
           and not torch.backends.cudnn.allow_tf32,
           "TF32 is off for fp32 matmuls and convolutions")
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} launched {n} times on the main path")
+    for name in MAIN_PATH:
+        check(counts[name] > 0, f"kernel {name} launched {counts[name]} "
+              "times on the main path")
 
     # After the main path was read: profile a few more requests (they land
     # in free write slots and change none of the numbers above).
@@ -424,11 +484,277 @@ def run_server(torch, dev, R_host) -> dict:
     for name, fn in profiles.items():
         log(f"  {name}:")
         metrics["device_busy"][name] = device_share(torch, fn)
-    return metrics
+    return metrics, srv
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: MovieLens shape, card against CPU
+# Phase 5: the kernel API (twin_probe, verify_rows, embedding_bag)
+# ---------------------------------------------------------------------------
+
+def cf_api_inputs(torch, srv, R_host) -> dict:
+    """From the server's final arena: the c probe rows scattered back to
+    user order (free slots SENTINEL), a planted twin's and a fresh
+    profile's probe sims, and the candidate block that ``verify_candidates``
+    gathers for the twin (s_max lowest-indexed candidates + the k_cap
+    onboarding rows)."""
+    import numpy as np
+    from repro_torch.core import twinsearch as ts
+    from repro_torch.core.types import SENTINEL, active_mask
+    from repro_torch.data.synthetic import plant_twins
+    from repro_torch.sorting import top_k
+    st, dev = srv.state, srv.device
+    N = st.capacity
+    rng = np.random.default_rng(SEED + 7)
+    probes = torch.as_tensor(rng.choice(srv.n_base, C_PROBES, replace=False),
+                             device=dev)
+    ids = st.sim_idx[probes].long()
+    live = ids >= 0
+    rows = torch.full((C_PROBES, N), SENTINEL, device=dev)
+    owner = torch.arange(C_PROBES, device=dev)[:, None].expand_as(ids)
+    rows[owner[live], ids[live]] = st.sim_vals[probes][live]
+
+    heavy = np.flatnonzero((R_host != 0).sum(axis=1) >= 50)
+    source = int(rng.choice(heavy))
+    twin = torch.as_tensor(R_host[source].astype(np.float32), device=dev)
+    fresh = torch.as_tensor(plant_twins(R_host, 1, seed=SEED + 300)[0]
+                            .astype(np.float32), device=dev)
+    s0_twin = ts.probe_sims(st, twin, probes)
+    s0_fresh = ts.probe_sims(st, fresh, probes)
+
+    cand = ts.candidate_mask(st, probes, s0_twin, srv.tol) & active_mask(st)
+    _, cidx = top_k(cand.float(), srv.s_max)
+    valid = cand[cidx]
+    blk = srv.n_base + torch.arange(srv.k_cap, device=dev)
+    cidx = torch.cat([cidx, torch.clamp(blk, max=N - 1)])
+    valid = torch.cat([valid, blk < st.n_active])
+    C = st.ratings[cidx].contiguous()
+    return {"rows": rows, "s0_twin": s0_twin,
+            "s0_fresh": s0_fresh, "tol": srv.tol, "source": source,
+            "C": C, "r0": twin, "valid": valid, "cidx": cidx,
+            "candidate_masks": [
+                ts.candidate_mask(st, probes, s0, srv.tol)
+                for s0 in (s0_twin, s0_fresh)]}
+
+
+def bag_api_inputs(torch, dev) -> dict:
+    """xDeepFM's table drawn on the card from a seeded generator, and one
+    serve_bulk batch of its multi-hot field: Zipf(1.3) ids into field 0's
+    rows by ``data/recsys_stream.py``'s rule, a 0.6 validity mask and
+    random weights, all made with numpy from the seed."""
+    import numpy as np
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    table = torch.randn((XDEEPFM_ROWS, XDEEPFM_DIM), device=dev, generator=g)
+    rng = np.random.default_rng(SEED + 3)
+    shape = (SERVE_BULK, MULTI_HOT)
+    idx = ((rng.zipf(ZIPF_A, size=shape) - 1) % XDEEPFM_FIELD0).astype(
+        np.int32)
+    mask = rng.random(shape) < MULTI_VALID
+    w = rng.random(shape).astype(np.float32)
+    return {"table": table, "idx": torch.as_tensor(idx, device=dev),
+            "w": torch.as_tensor(w, device=dev),
+            "mask": torch.as_tensor(mask, device=dev)}
+
+
+def drive_kernel_api(torch, cf: dict, bags: dict) -> tuple[dict, dict]:
+    """The three kernels through ``repro_torch.kernels`` as a caller uses
+    them, with the launch counts zeroed just before and read just after."""
+    from repro_torch.kernels import (embedding_bag, launch_counts,
+                                     reset_launch_counts, twin_probe,
+                                     verify_rows)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = {
+        "probe_twin": twin_probe(cf["rows"], cf["s0_twin"], tol=cf["tol"]),
+        "probe_fresh": twin_probe(cf["rows"], cf["s0_fresh"],
+                                  tol=cf["tol"]),
+        "flags": verify_rows(cf["C"], cf["r0"], cf["valid"]),
+        "flags_i8": verify_rows(cf["C"].to(torch.int8),
+                                cf["r0"].to(torch.int8), cf["valid"]),
+        "bags": embedding_bag(bags["table"], bags["idx"], bags["w"],
+                              bags["mask"])}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"  kernel API launches: { {k: counts[k] for k in API_KERNELS} }")
+    for name in API_KERNELS:
+        check(counts[name] > 0, f"kernel {name} launched {counts[name]} "
+              "times through the kernel API")
+    return out, counts
+
+
+def check_twin_probe(torch, cf: dict, out: dict, flush) -> dict:
+    from repro_torch.kernels.twin_probe.kernel import twin_probe_cuda
+    from repro_torch.kernels.twin_probe.ops import twin_probe
+    from repro_torch.kernels.twin_probe.ref import twin_probe_ref
+    rows, tol = cf["rows"], cf["tol"]
+    c, N = rows.shape
+    for case, cmask in zip(("twin", "fresh"), cf["candidate_masks"]):
+        mask, count = out[f"probe_{case}"]
+        pmask, pcount = twin_probe_ref(rows, cf[f"s0_{case}"], tol)
+        check(torch.equal(mask, pmask) and int(count) == int(pcount),
+              f"twin_probe ({c} x {N}, {case} s0) mask and count "
+              f"({int(count)}) equal to the plain version")
+        log(f"    against candidate_mask (searchsorted on the sorted lists):"
+            f" {int(cmask.sum())} candidates there, "
+            f"{int((mask != cmask).sum())} columns differ")
+    check(int(out["probe_twin"][1]) > 0,
+          f"twin_probe finds the planted twin's source user "
+          f"{cf['source']} (mask {bool(out['probe_twin'][0][cf['source']])})")
+    g = torch.Generator(device=rows.device).manual_seed(SEED + 4)
+    small = torch.round(torch.rand((3, 517), device=rows.device,
+                                   generator=g) * 20) / 10 - 1
+    small[1, 9] = float("nan")
+    ks, kc = twin_probe(small, small[:, 9].clone(), tol=0.05)
+    ps, pc = twin_probe_ref(small, small[:, 9].clone(), 0.05)
+    check(torch.equal(ks, ps) and int(kc) == int(pc),
+          f"twin_probe ragged (3 x 517, NaN, tol 0.05) equal to the plain "
+          f"version (count {int(kc)})")
+
+    s0 = cf["s0_twin"]
+    ms = cold_ms(lambda: twin_probe_cuda(rows, s0, tol), 20, flush)
+    plain_ms = cold_ms(lambda: twin_probe_ref(rows, s0, tol), 20, flush)
+    host_ms = call_ms(lambda: twin_probe_cuda(rows, s0, tol), 200)
+    b_ms, b_by = bound(4.0 * c * N + 4.0 * c + N + 4, 3.0 * c * N)
+    log(f"  twin_probe ({c}x{N}): kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+        f" ms, bound {b_ms:.5f} ms ({b_by}); no single library call; "
+        f"{host_ms:.4f} ms per call back to back")
+    log("  twin_probe under the profiler (warm L2):")
+    prof = device_share(torch, lambda: twin_probe_cuda(rows, s0, tol), 5)
+    return {"name": "twin_probe", "route": "cuda",
+            "source": "src/repro_torch/csrc/twin_probe.cu",
+            "replaces": "src/repro/kernels/twin_probe/kernel.py:35",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "call_ms": host_ms, "profiled": prof, "shape": [c, N],
+            "count_twin": int(out["probe_twin"][1]),
+            "count_fresh": int(out["probe_fresh"][1])}
+
+
+def check_verify_rows(torch, cf: dict, out: dict, flush) -> dict:
+    from repro_torch.kernels.verify_rows.kernel import verify_rows_cuda
+    from repro_torch.kernels.verify_rows.ops import verify_rows
+    from repro_torch.kernels.verify_rows.ref import verify_rows_ref
+    C, r0, valid = cf["C"], cf["r0"], cf["valid"]
+    C8, r08 = C.to(torch.int8), r0.to(torch.int8)
+    s, m = C.shape
+    plain = verify_rows_ref(C, r0, valid)
+    check(torch.equal(out["flags"], plain),
+          f"verify_rows f32 ({s} x {m}) flags equal to the plain version")
+    check(torch.equal(out["flags_i8"], verify_rows_ref(C8, r08, valid))
+          and torch.equal(out["flags_i8"], plain),
+          f"verify_rows int8 ({s} x {m}) flags equal to the plain version "
+          "and to f32")
+    hits = out["flags"].nonzero().flatten()
+    check(hits.numel() > 0 and bool(torch.all(
+        C[hits] == r0[None, :])), f"verify_rows verifies the planted twin "
+          f"({hits.numel()} rows: users {cf['cidx'][hits].tolist()})")
+    r0s = r0[:1001].clone()
+    r0s[0] = 0.0
+    small = r0s.repeat(7, 1)
+    small[1, 0] = -0.0                             # equal as a value
+    small[3, 1000] = float("nan")                  # NaN equals nothing
+    small[4, 500] += 1.0
+    small[5] = C[0, :1001]
+    sv = torch.ones(7, dtype=torch.bool, device=C.device)
+    sv[6] = False
+    flags = verify_rows(small, r0s, sv)
+    check(torch.equal(flags, verify_rows_ref(small, r0s, sv))
+          and flags[:5].tolist() == [True, True, True, False, False]
+          and not bool(flags[6]),
+          "verify_rows ragged (7 x 1001, -0.0, NaN, an invalid twin) equal "
+          "to the plain version")
+
+    ms = cold_ms(lambda: verify_rows_cuda(C, r0, valid), 20, flush)
+    ms8 = cold_ms(lambda: verify_rows_cuda(C8, r08, valid), 20, flush)
+    plain_ms = cold_ms(lambda: verify_rows_ref(C, r0, valid), 20, flush)
+    plain_ms8 = cold_ms(lambda: verify_rows_ref(C8, r08, valid), 20, flush)
+    host_ms = call_ms(lambda: verify_rows_cuda(C, r0, valid), 200)
+    b_ms, b_by = bound(4.0 * (s * m + m) + 2.0 * s, float(s * m))
+    b8_ms, _ = bound(1.0 * (s * m + m) + 2.0 * s, float(s * m))
+    log(f"  verify_rows ({s}x{m}): f32 kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); int8 kernel "
+        f"{ms8:.4f} ms, plain {plain_ms8:.4f} ms, bound {b8_ms:.4f} ms; no "
+        f"single library call; f32 {host_ms:.4f} ms per call back to back")
+    log("  verify_rows f32 under the profiler (warm L2):")
+    prof = device_share(torch, lambda: verify_rows_cuda(C, r0, valid), 5)
+    return {"name": "verify_rows", "route": "cuda",
+            "source": "src/repro_torch/csrc/verify_rows.cu",
+            "replaces": "src/repro/kernels/verify_rows/kernel.py:38",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "int8_ms": ms8, "int8_plain_ms": plain_ms8,
+            "int8_bound_ms": b8_ms, "call_ms": host_ms, "profiled": prof,
+            "shape": [s, m]}
+
+
+def check_embedding_bag(torch, bags: dict, out: dict, flush) -> dict:
+    import torch.nn.functional as F
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    table = bags["table"]
+    V, dim = table.shape
+    idx = bags["idx"]
+    w = bags["w"] * bags["mask"].float()
+    B, hot = idx.shape
+    plain = embedding_bag_ref(table, idx.long(), w)
+    same = torch.equal(out["bags"], plain)
+    err = float((out["bags"] - plain).abs().max())
+    check(same, f"embedding_bag ({B} bags x {hot}, {V} x {dim} table) "
+          "bit-identical to the plain version")
+    g = torch.Generator(device=table.device).manual_seed(SEED + 5)
+    st = torch.randn((37, 7), device=table.device, generator=g)
+    si = torch.randint(-4, 42, (5, 3), device=table.device, generator=g,
+                       dtype=torch.int32)
+    sw = torch.rand((5, 3), device=table.device, generator=g)
+    sm = torch.rand((5, 3), device=table.device, generator=g) < 0.6
+    check(torch.equal(embedding_bag(st, si, sw, sm), embedding_bag_ref(
+        st, torch.clamp(si.long(), 0, 36), sw * sm.float())),
+          "embedding_bag ragged (5 x 3, ids out of range both ways) "
+          "bit-identical to the plain version")
+
+    ms = cold_ms(lambda: embedding_bag_cuda(table, idx, w), 20, flush)
+    plain_ms = cold_ms(lambda: embedding_bag_ref(table, idx.long(), w), 20,
+                       flush)
+    lib = F.embedding_bag(idx, table, mode="sum", per_sample_weights=w)
+    lib_err = float((lib - plain).abs().max())
+    lib_ms = cold_ms(lambda: F.embedding_bag(
+        idx, table, mode="sum", per_sample_weights=w), 20, flush)
+    host_ms = call_ms(lambda: embedding_bag_cuda(table, idx, w), 200)
+    rows = int(torch.unique(idx).numel())
+    b_ms, b_by = bound(4.0 * rows * dim + 8.0 * B * hot + 4.0 * B * dim,
+                       2.0 * B * hot * dim)
+    log(f"  embedding_bag ({B} bags x {hot}, {rows} distinct rows of "
+        f"{V} x {dim}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"F.embedding_bag {lib_ms:.4f} ms (max diff {lib_err:.3g}), bound "
+        f"{b_ms:.4f} ms ({b_by}); {host_ms:.4f} ms per call back to back")
+    log("  embedding_bag under the profiler (warm L2):")
+    prof = device_share(torch, lambda: embedding_bag_cuda(table, idx, w), 5)
+    return {"name": "embedding_bag", "route": "cuda",
+            "source": "src/repro_torch/csrc/embedding_bag.cu",
+            "replaces": "src/repro/kernels/embedding_bag/kernel.py:36",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "library_max_abs_err": lib_err, "distinct_rows": rows,
+            "call_ms": host_ms, "profiled": prof,
+            "shape": [B, hot, V, dim]}
+
+
+def run_kernel_api(torch, dev, srv, R_host) -> tuple[dict, dict]:
+    cf = cf_api_inputs(torch, srv, R_host)
+    log(f"  probe rows {tuple(cf['rows'].shape)}, candidate block "
+        f"{tuple(cf['C'].shape)} ({int(cf['valid'].sum())} valid)")
+    bags = bag_api_inputs(torch, dev)
+    out, counts = drive_kernel_api(torch, cf, bags)
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+    flush = scratch.zero_
+    entries = {"twin_probe": check_twin_probe(torch, cf, out, flush),
+               "verify_rows": check_verify_rows(torch, cf, out, flush),
+               "embedding_bag": check_embedding_bag(torch, bags, out, flush)}
+    return entries, counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: MovieLens shape, card against CPU
 # ---------------------------------------------------------------------------
 
 def movielens_script(torch, device: str):
@@ -559,17 +885,24 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         log("== 4. server at Douban width")
-        server = run_server(torch, dev, R_host)
+        server, srv = run_server(torch, dev, R_host)
         torch.cuda.empty_cache()
 
-        log("== 5. MovieLens shape, card against CPU")
+        log("== 5. kernel API")
+        api, api_launches = run_kernel_api(torch, dev, srv, R_host)
+        entries.update(api)
+        del srv
+        torch.cuda.empty_cache()
+
+        log("== 6. MovieLens shape, card against CPU")
         run_movielens(torch)
 
-        log("== 6. summary")
+        log("== 7. summary")
         kernels = []
-        for kname in ("similarity", "list_merge", "knn_score"):
+        for kname in MAIN_PATH + API_KERNELS:
             e = dict(entries[kname])
-            e["launches"] = server["launches"][kname]
+            e["launches"] = (server["launches"] if kname in MAIN_PATH
+                             else api_launches)[kname]
             kernels.append(e)
         log(f"  total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"server": server}))

@@ -10,14 +10,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.types import SENTINEL, SENTINEL_GATE, CFState
+from repro_torch.core.types import (SENTINEL, SENTINEL_GATE, CFState,
+                                    require_device)
 
 FIELDS = ("ratings", "norms", "sim_vals", "sim_idx", "n_active")
 
 
-def state_from_numpy(arrays: dict, device: str | torch.device = "cpu"
+def state_from_numpy(arrays: dict, device: str | torch.device = "cuda"
                      ) -> CFState:
-    """numpy arrays (or anything ``np.asarray`` takes) -> port state."""
+    """numpy arrays (or anything ``np.asarray`` takes) -> port state on
+    ``device``, the card unless the caller asks for the CPU.  Raises if
+    ``device`` is CUDA and no card is present."""
+    device = require_device(device, "state_from_numpy")
     a = {k: np.asarray(arrays[k]) for k in FIELDS}
     return CFState(
         ratings=torch.as_tensor(a["ratings"].astype(np.float32),

@@ -28,6 +28,17 @@ SENTINEL = -2.0
 SENTINEL_GATE = -1.5
 
 
+def require_device(device: str | torch.device, caller: str) -> torch.device:
+    """``device`` as a ``torch.device``; raises if it is CUDA and no card is
+    present, so an entry point never slides onto the CPU by itself."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{caller}(device='cuda') needs a CUDA device "
+                           "and none is available; pass device='cpu' to "
+                           "run the plain PyTorch path")
+    return device
+
+
 class CFState(NamedTuple):
     ratings: torch.Tensor       # (N, m) float32
     norms: torch.Tensor         # (N,) float32

@@ -36,6 +36,17 @@ def _nvcc() -> str:
                        "to build the repro_torch CUDA kernels")
 
 
+def _c_arg(a):
+    """One launch argument as its ctypes value: a tensor as its data
+    pointer, a Python float as a C ``float`` (a kernel's tolerance), any
+    other value as a C ``int``."""
+    if isinstance(a, torch.Tensor):
+        return ctypes.c_void_p(a.data_ptr())
+    if isinstance(a, float):
+        return ctypes.c_float(a)
+    return ctypes.c_int(int(a))
+
+
 class Kernel:
     """One ``.cu`` source: its library, its C entry points and the count of
     launches made through ``launch``."""
@@ -94,15 +105,11 @@ class Kernel:
 
     def launch(self, fn: str, *args) -> None:
         """Call C entry point ``fn`` on the current stream.  Arguments are
-        tensors (passed as device pointers) or ints; the stream goes last.
-        Raises if the launch was refused."""
+        tensors (passed as device pointers), Python floats (passed as C
+        ``float``) or ints; the stream goes last.  Raises if the launch was
+        refused."""
         lib = self.load()
-        cargs = []
-        for a in args:
-            if isinstance(a, torch.Tensor):
-                cargs.append(ctypes.c_void_p(a.data_ptr()))
-            else:
-                cargs.append(ctypes.c_int(int(a)))
+        cargs = [_c_arg(a) for a in args]
         cargs.append(ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
         f = getattr(lib, fn)
         f.argtypes = [type(c) for c in cargs]
@@ -117,7 +124,11 @@ class Kernel:
 SIMILARITY = Kernel("similarity")
 KNN_SCORE = Kernel("knn_score")
 LIST_MERGE = Kernel("list_merge")
-KERNELS = {k.name: k for k in (SIMILARITY, KNN_SCORE, LIST_MERGE)}
+TWIN_PROBE = Kernel("twin_probe")
+VERIFY_ROWS = Kernel("verify_rows")
+EMBEDDING_BAG = Kernel("embedding_bag")
+KERNELS = {k.name: k for k in (SIMILARITY, KNN_SCORE, LIST_MERGE, TWIN_PROBE,
+                               VERIFY_ROWS, EMBEDDING_BAG)}
 
 
 def build_all() -> dict[str, str]:

@@ -1,8 +1,39 @@
-"""Arena health checks (the non-Pallas half of the JAX ``verify_rows``
-module; its Pallas kernel is not ported yet)."""
+"""Public wrapper of the verification kernel, and the arena health checks
+that share its module in the JAX package.
+
+``verify_rows`` launches ``csrc/verify_rows.cu`` on CUDA tensors and runs
+the plain version (``ref.py``) on CPU tensors.  The JAX wrapper's TPU
+tiling and interpret arguments (``bs``, ``bk``, ``interpret``) are dropped:
+the kernel strides over any row width, so nothing is padded.
+``rows_sorted_finite`` and ``arena_healthy`` are plain PyTorch, as they are
+plain jnp in the JAX package.
+"""
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.verify_rows.kernel import ENTRY, verify_rows_cuda
+from repro_torch.kernels.verify_rows.ref import verify_rows_ref
+
+
+def verify_rows(C: torch.Tensor, r0: torch.Tensor, valid: torch.Tensor
+                ) -> torch.Tensor:
+    """(s, m) candidates vs (m,) target -> (s,) bool verified-twin flags.
+
+    ``C`` and ``r0`` are promoted to one dtype as jnp's ``==`` would
+    promote them; on the card the kernel takes float32 and int8 after
+    promotion and raises ``NotImplementedError`` for any other dtype."""
+    dt = torch.promote_types(C.dtype, r0.dtype)
+    C, r0, valid = C.to(dt), r0.to(dt), valid.to(torch.bool)
+    if C.is_cuda:
+        if dt not in ENTRY:
+            raise NotImplementedError(f"verify_rows: the CUDA kernel takes "
+                                      f"float32 or int8, not {dt}")
+        return verify_rows_cuda(C.contiguous(), r0.contiguous(),
+                                valid.contiguous())
+    if C.device.type == "cpu":
+        return verify_rows_ref(C, r0, valid)
+    raise ValueError(f"verify_rows: unsupported device {C.device}")
 
 
 def rows_sorted_finite(vals: torch.Tensor, n_active: int) -> torch.Tensor:

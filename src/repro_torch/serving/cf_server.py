@@ -57,7 +57,8 @@ from repro_torch.core import baseline as base_lib
 from repro_torch.core import knn
 from repro_torch.core import twinsearch as ts
 from repro_torch.core.rotation import rotate_arena
-from repro_torch.core.types import CFState, clone_state, set0_cap
+from repro_torch.core.types import (CFState, clone_state, require_device,
+                                    set0_cap)
 from repro_torch.kernels.knn_score.ops import knn_recommend_topn
 from repro_torch.kernels.verify_rows.ops import arena_healthy
 from repro_torch.serving import guard
@@ -191,11 +192,7 @@ class CFServer:
         if config.rotation.budget_rows > 0:
             raise _not_ported("incremental rotation (rotation.budget_rows "
                               "> 0, RotationPlan)", "item 7")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("CFServer(device='cuda') needs a CUDA device "
-                               "and none is available; pass device='cpu' "
-                               "to run the plain PyTorch path")
+        self.device = require_device(device, "CFServer")
         self.config = config
 
         self.n_base = int(ratings.shape[0])

@@ -7,8 +7,9 @@ JAX), and every test is marked ``gpu`` and skips without a CUDA device.
 Run it on the card with ``python -m pytest -m gpu tests/test_torch_gpu.py``.
 
 Tolerances: ``similarity`` within 1e-5 (f32) and 2e-2 (bf16), the bounds
-of ``tests/test_kernels.py``; ``knn_score`` and ``list_merge`` bit-for-bit
-(same serial order; pure data movement).
+of ``tests/test_kernels.py``; ``knn_score``, ``embedding_bag`` and
+``list_merge`` bit-for-bit (same serial order; pure data movement);
+``twin_probe`` and ``verify_rows`` exactly (masks, counts and flags).
 """
 from __future__ import annotations
 
@@ -19,7 +20,9 @@ import torch
 from repro_torch.bridge import (lists_match, ranked_match, state_from_numpy,
                                 state_to_numpy)
 from repro_torch.core import knn, similarity
-from repro_torch.kernels import launch_counts
+from repro_torch.kernels import (embedding_bag, launch_counts, twin_probe,
+                                 verify_rows)
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.knn_score.ops import knn_scores
 from repro_torch.kernels.knn_score.ref import knn_scores_ref
 from repro_torch.kernels.list_merge.ops import merge_insert
@@ -27,6 +30,8 @@ from repro_torch.kernels.list_merge.ref import (merge_insert_ref,
                                                 merge_sorted_ref)
 from repro_torch.kernels.similarity.ops import cosine_similarity
 from repro_torch.kernels.similarity.ref import similarity_ref
+from repro_torch.kernels.twin_probe.ref import twin_probe_ref
+from repro_torch.kernels.verify_rows.ref import verify_rows_ref
 from repro_torch.serving import CFServer, ServerConfig, SnapshotConfig
 
 pytestmark = pytest.mark.gpu
@@ -170,3 +175,131 @@ def test_server_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(
         pc, knn.predict_batch(plain, users, [5] * len(users), 7).numpy(),
         atol=1e-6, rtol=0)
+
+
+def _launched(name, fn, *args, **kwargs):
+    """Run ``fn`` and check that it launched kernel ``name`` exactly once."""
+    before = launch_counts()[name]
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert launch_counts()[name] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("c,N", [(1, 1), (2, 64), (8, 513), (8, 700),
+                                 (16, 2048), (8, 32896)])
+@pytest.mark.parametrize("tol", [1e-6, 0.05])
+def test_twin_probe_kernel_exact(cuda, c, N, tol):
+    """Ragged widths, ties at the tolerance's edge, NaN and SENTINEL
+    columns; a tol that an int argument would cut to 0 must still match
+    the near columns."""
+    rng = np.random.default_rng(c * N)
+    rows = np.round(rng.uniform(-1, 1, (c, N)), 2).astype(np.float32)
+    s0 = rows[:, N // 3].copy()
+    if N >= 8:
+        rows[:, 1] = s0 + np.float32(tol)
+        rows[:, 2] = np.nextafter(s0 + np.float32(tol), np.float32(2))
+        rows[0, 3] = np.nan
+        rows[:, 4] = s0
+        rows[:, 5:8] = -2.0
+    rows_t = torch.as_tensor(rows, device=cuda)
+    s0_t = torch.as_tensor(s0, device=cuda)
+    mask, count = _launched("twin_probe", twin_probe, rows_t, s0_t, tol=tol)
+    rmask, rcount = twin_probe_ref(rows_t, s0_t, tol)
+    assert torch.equal(mask, rmask) and int(count) == int(rcount)
+    assert int(count) == int(mask.sum()) and bool(mask[N // 3])
+    if N >= 8:
+        assert bool(mask[4]) and not bool(mask[3])
+
+
+def test_twin_probe_kernel_refuses_other_dtypes(cuda):
+    rows = torch.zeros((2, 9), dtype=torch.float64, device=cuda)
+    with pytest.raises(NotImplementedError, match="float64"):
+        twin_probe(rows, rows[:, 0])
+
+
+@pytest.mark.parametrize("s,m", [(1, 1), (8, 16), (37, 211), (300, 700),
+                                 (458, 58541)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+def test_verify_rows_kernel_exact(cuda, s, m, dtype):
+    """Ragged and odd widths (58,541: rows off 16-byte alignment), planted
+    twins, one differing element at the head or the tail of a row."""
+    rng = np.random.default_rng(s + m)
+    C = rng.integers(0, 6, (s, m))
+    C[rng.choice(s, size=min(4, s), replace=False)] = C[s // 2]
+    if s >= 8:
+        C[1] = C[s // 2]
+        C[1, 0] += 1
+        C[2] = C[s // 2]
+        C[2, -1] += 1
+    valid = rng.random(s) < 0.8
+    Ct = torch.as_tensor(C, device=cuda).to(dtype)
+    r0 = Ct[s // 2].clone()
+    vt = torch.as_tensor(valid, device=cuda)
+    out = _launched("verify_rows", verify_rows, Ct, r0, vt)
+    assert torch.equal(out, verify_rows_ref(Ct, r0, vt))
+    assert bool(out[s // 2]) == bool(valid[s // 2])
+
+
+def test_verify_rows_kernel_signed_zero_nan_and_invalid(cuda):
+    r0 = torch.tensor([0.0, 1.0, 2.0, 0.0, 5.0], device=cuda)
+    C = r0.repeat(5, 1)
+    C[1, 0] = -0.0                                # -0.0 == 0.0
+    C[2, 2] = float("nan")                        # NaN equals nothing
+    valid = torch.tensor([True, True, True, False, True], device=cuda)
+    out = _launched("verify_rows", verify_rows, C, r0, valid)
+    assert out.tolist() == [True, True, False, False, True]
+    assert torch.equal(out, verify_rows_ref(C, r0, valid))
+    r0_nan = r0.clone()
+    r0_nan[2] = float("nan")
+    assert not _launched("verify_rows", verify_rows, C, r0_nan,
+                         valid).any()
+    none = torch.zeros(5, dtype=torch.bool, device=cuda)
+    assert not _launched("verify_rows", verify_rows, C, r0, none).any()
+
+
+def test_verify_rows_kernel_promotion_and_other_dtypes(cuda):
+    """int8 against float32 promotes to float32 (the f32 kernel); a dtype
+    the kernel has no instance for raises."""
+    C = torch.randint(0, 6, (9, 33), dtype=torch.int8, device=cuda)
+    out = _launched("verify_rows", verify_rows, C, C[3].float(),
+                    torch.ones(9, dtype=torch.bool, device=cuda))
+    assert bool(out[3])
+    with pytest.raises(NotImplementedError, match="int32"):
+        verify_rows(C.int(), C[3].int(), torch.ones(9, dtype=torch.bool,
+                                                    device=cuda))
+
+
+def _same_bits(a, b):
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0))
+
+
+@pytest.mark.parametrize("nb,hot,V,dim", [(1, 1, 1, 1), (4, 2, 50, 8),
+                                          (33, 5, 200, 64),
+                                          (1000, 8, 100000, 10),
+                                          (7, 3, 37, 257)])
+def test_embedding_bag_kernel_bitwise_plain(cuda, nb, hot, V, dim):
+    """Ragged shapes, ids out of range on both sides, a validity mask and
+    an infinite table entry behind a zero-weight slot (NaN, as in JAX)."""
+    rng = np.random.default_rng(nb * hot + dim)
+    table = rng.normal(size=(V, dim)).astype(np.float32)
+    table[0, 0] = np.inf
+    idx = rng.integers(-3, V + 3, (nb, hot)).astype(np.int32)
+    w = rng.uniform(0, 1, (nb, hot)).astype(np.float32)
+    mask = rng.random((nb, hot)) < 0.6
+    args = [torch.as_tensor(x, device=cuda) for x in (table, idx, w, mask)]
+    out = _launched("embedding_bag", embedding_bag, *args)
+    clipped = torch.clamp(args[1].long(), 0, V - 1)
+    ref = embedding_bag_ref(args[0], clipped, args[2] * args[3].float())
+    assert _same_bits(out, ref)
+    out1 = _launched("embedding_bag", embedding_bag, args[0], args[1])
+    assert _same_bits(out1, embedding_bag_ref(
+        args[0], clipped, torch.ones((nb, hot), device=cuda)))
+
+
+def test_embedding_bag_kernel_refuses_other_dtypes(cuda):
+    table = torch.zeros((4, 3), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        embedding_bag(table, torch.zeros((2, 2), dtype=torch.int32,
+                                         device=cuda))

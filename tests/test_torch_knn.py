@@ -71,7 +71,7 @@ def test_top_k_neighbors_batch_parity(rng, n, extra, k):
     weight) and k beyond capacity."""
     R = _tie_heavy(rng, n=max(n, 14))[:n]
     js = jbuild(jnp.asarray(R), capacity_extra=extra)
-    ts = state_from_numpy(_jstate_np(js))
+    ts = state_from_numpy(_jstate_np(js), device="cpu")
     users = np.arange(n, dtype=np.int32)
     jv, ji = jax.device_get(jknn.top_k_neighbors_batch(
         js, jnp.asarray(users), k))
@@ -86,7 +86,7 @@ def test_top_k_neighbors_batch_parity(rng, n, extra, k):
 def test_predict_and_recommend_parity(rng):
     R = _tie_heavy(rng)
     js = jbuild(jnp.asarray(R), capacity_extra=8)
-    ts = state_from_numpy(_jstate_np(js))
+    ts = state_from_numpy(_jstate_np(js), device="cpu")
     users = np.arange(0, 120, 7, dtype=np.int32)
     items = (users * 3 % 40).astype(np.int32)
     jp = np.asarray(jknn.predict_batch(js, jnp.asarray(users),

@@ -80,7 +80,7 @@ def _state_pair(rng, n=60, m=20, extra=6):
     R = make_ratings(rng, n=n, m=m)
     R[7] = R[3]                                    # tie-heavy: twins
     js = jbuild(jnp.asarray(R), capacity_extra=extra)
-    return js, state_from_numpy(_jstate_np(js))
+    return js, state_from_numpy(_jstate_np(js), device="cpu")
 
 
 def test_insert_batch_into_lists_parity(rng):

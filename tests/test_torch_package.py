@@ -3,10 +3,12 @@
   * no file of ``src/repro_torch/`` (nor ``chip_smoke.py``) imports
     ``jax`` or the ``repro`` package;
   * importing the port's serving surface loads no JAX;
-  * ``CFServer(device="cuda")`` raises where there is no card, instead of
-    sliding onto the CPU;
+  * ``CFServer(device="cuda")`` and ``state_from_numpy`` (whose default is
+    the card) raise where there is no card, instead of sliding onto the
+    CPU;
   * each kernel wrapper runs its plain version on CPU tensors, launches
-    nothing and counts nothing, and raises on a device it does not serve.
+    nothing and counts nothing, and raises on a device it does not serve;
+  * ``repro_torch.kernels`` names every function of ``repro.kernels``.
 """
 from __future__ import annotations
 
@@ -19,13 +21,19 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import launch_counts
+import repro_torch.kernels
+from repro_torch.bridge import state_from_numpy
+from repro_torch.kernels import (embedding_bag, launch_counts, twin_probe,
+                                 verify_rows)
+from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda
 from repro_torch.kernels.knn_score.kernel import knn_scores_cuda
 from repro_torch.kernels.knn_score.ops import knn_scores
 from repro_torch.kernels.list_merge.kernel import merge_sorted_cuda
 from repro_torch.kernels.list_merge.ops import merge_insert
 from repro_torch.kernels.similarity.kernel import similarity_cuda
 from repro_torch.kernels.similarity.ops import cosine_similarity
+from repro_torch.kernels.twin_probe.kernel import twin_probe_cuda
+from repro_torch.kernels.verify_rows.kernel import verify_rows_cuda
 from repro_torch.serving import CFServer
 from tests.conftest import make_ratings
 
@@ -75,6 +83,25 @@ def test_cuda_server_raises_without_a_card():
         CFServer(R)
 
 
+def test_state_from_numpy_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    R = make_ratings(np.random.default_rng(0), n=6, m=4)
+    arrays = {"ratings": R, "norms": np.linalg.norm(R, axis=1),
+              "sim_vals": np.zeros((6, 6), np.float32),
+              "sim_idx": np.zeros((6, 6), np.int32), "n_active": 6}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        state_from_numpy(arrays)
+    assert state_from_numpy(arrays, device="cpu").ratings.device.type == \
+        "cpu"
+
+
+def test_port_names_every_reference_kernel_function():
+    import repro.kernels
+    missing = set(repro.kernels.__all__) - set(repro_torch.kernels.__all__)
+    assert not missing, sorted(missing)
+
+
 def _cases():
     rng = np.random.default_rng(0)
     Q = torch.as_tensor(rng.normal(size=(3, 9)).astype(np.float32))
@@ -90,10 +117,17 @@ def _cases():
         "list_merge": (merge_insert, (vals, idx, ins,
                                       torch.tensor([7, 8, 9]))),
         "knn_score": (knn_scores, (R, w, nbrs, users)),
+        "twin_probe": (twin_probe, (vals, vals[:, 3])),
+        "verify_rows": (verify_rows, (R, R[2], torch.ones(12, dtype=bool))),
+        "embedding_bag": (embedding_bag, (R, nbrs, w)),
     }
 
 
-@pytest.mark.parametrize("name", ["similarity", "list_merge", "knn_score"])
+KERNEL_NAMES = ["similarity", "list_merge", "knn_score", "twin_probe",
+                "verify_rows", "embedding_bag"]
+
+
+@pytest.mark.parametrize("name", KERNEL_NAMES)
 def test_wrapper_runs_plain_version_on_cpu(name):
     fn, args = _cases()[name]
     before = launch_counts()
@@ -101,7 +135,7 @@ def test_wrapper_runs_plain_version_on_cpu(name):
     assert launch_counts() == before
 
 
-@pytest.mark.parametrize("name", ["similarity", "list_merge", "knn_score"])
+@pytest.mark.parametrize("name", KERNEL_NAMES)
 def test_wrapper_raises_on_unserved_device(name):
     fn, args = _cases()[name]
     with pytest.raises(ValueError, match="device"):
@@ -117,7 +151,13 @@ def test_kernel_bindings_refuse_cpu_tensors():
                                     torch.zeros(2, 1, dtype=torch.int32))),
                (knn_scores_cuda, (torch.zeros(4, 3), torch.zeros(1, 2),
                                   torch.zeros(1, 2, dtype=torch.int32),
-                                  torch.zeros(1, dtype=torch.int32)))]
+                                  torch.zeros(1, dtype=torch.int32))),
+               (twin_probe_cuda, (torch.zeros(2, 5), torch.zeros(2), 1e-6)),
+               (verify_rows_cuda, (torch.zeros(2, 5), torch.zeros(5),
+                                   torch.ones(2, dtype=torch.bool))),
+               (embedding_bag_cuda, (torch.zeros(4, 3),
+                                     torch.zeros(2, 2, dtype=torch.int32),
+                                     torch.zeros(2, 2)))]
     for fn, args in fn_args:
         with pytest.raises(ValueError, match="CUDA"):
             fn(*args)

@@ -50,7 +50,7 @@ def test_rotate_arena_bit_identical(rng, headroom):
     j = _jstate_np(jrot.rotate_arena(js, n_base=120, extra=8,
                                      headroom=headroom))
     t = state_to_numpy(rotation.rotate_arena(
-        state_from_numpy(_jstate_np(js)), n_base=120, extra=8,
+        state_from_numpy(_jstate_np(js), device="cpu"), n_base=120, extra=8,
         headroom=headroom))
     _assert_same(t, j)
     assert (t["sim_idx"] == -1).any()          # rotation padding present
@@ -61,18 +61,18 @@ def test_rotate_frozen_with_carried_rows(rng):
     j = _jstate_np(jrot.rotate_arena_frozen(js, n_base=120, n_frozen=124,
                                             extra=5))
     t = state_to_numpy(rotation.rotate_arena_frozen(
-        state_from_numpy(_jstate_np(js)), n_base=120, n_frozen=124,
-        extra=5))
+        state_from_numpy(_jstate_np(js), device="cpu"), n_base=120,
+        n_frozen=124, extra=5))
     _assert_same(t, j)
 
 
 def test_rotation_chunking_changes_no_bit(rng, monkeypatch):
     _, js = _full_arena(rng)
     whole = state_to_numpy(rotation.rotate_arena(
-        state_from_numpy(_jstate_np(js)), n_base=120, extra=8))
+        state_from_numpy(_jstate_np(js), device="cpu"), n_base=120, extra=8))
     monkeypatch.setattr(rotation, "SORT_CHUNK_ROWS", 13)
     chunked = state_to_numpy(rotation.rotate_arena(
-        state_from_numpy(_jstate_np(js)), n_base=120, extra=8))
+        state_from_numpy(_jstate_np(js), device="cpu"), n_base=120, extra=8))
     _assert_same(chunked, whole)
 
 
@@ -81,7 +81,7 @@ def test_unsorted_rows_parity(rng):
     rows = np.arange(115, 128)
     j = np.asarray(jrot.unsorted_rows(js.sim_vals, js.sim_idx,
                                       jnp.asarray(rows)))
-    st = state_from_numpy(_jstate_np(js))
+    st = state_from_numpy(_jstate_np(js), device="cpu")
     np.testing.assert_array_equal(
         rotation.unsorted_rows(st.sim_vals, st.sim_idx,
                                torch.as_tensor(rows)).numpy(), j)
@@ -93,7 +93,7 @@ def test_onboard_after_rotation_then_rotate_again(rng):
     lists that already hold -1 ids."""
     R, js = _full_arena(rng)
     js = jrot.rotate_arena(js, n_base=120, extra=8)
-    st = state_from_numpy(_jstate_np(js))
+    st = state_from_numpy(_jstate_np(js), device="cpu")
     burst = np.concatenate([R[[3, 5, 5, 60]], make_ratings(
         np.random.default_rng(8), n=4)])
     probes = np.asarray(jts.make_probes(jax.random.PRNGKey(6), 8, 4, 128))
@@ -110,6 +110,6 @@ def test_onboard_after_rotation_then_rotate_again(rng):
                        t["sim_idx"], 1e-6) is None
 
     j2 = _jstate_np(jrot.rotate_arena(jst, n_base=128, extra=8))
-    t2 = state_to_numpy(rotation.rotate_arena(state_from_numpy(j),
-                                              n_base=128, extra=8))
+    t2 = state_to_numpy(rotation.rotate_arena(
+        state_from_numpy(j, device="cpu"), n_base=128, extra=8))
     _assert_same(t2, j2)

@@ -96,10 +96,11 @@ def test_onboard_batch_traditional_parity(rng):
     j_out = _jstate_np(jbase.onboard_batch_traditional(
         js, jnp.asarray(burst), fused=True, interpret=True))
     fused = state_to_numpy(baseline.onboard_batch_traditional(
-        state_from_numpy(_jstate_np(js)), torch.as_tensor(burst)))
+        state_from_numpy(_jstate_np(js), device="cpu"),
+        torch.as_tensor(burst)))
     loop = state_to_numpy(baseline.onboard_batch_traditional(
-        state_from_numpy(_jstate_np(js)), torch.as_tensor(burst),
-        fused=False))
+        state_from_numpy(_jstate_np(js), device="cpu"),
+        torch.as_tensor(burst), fused=False))
     for out in (fused, loop):
         assert out["n_active"] == j_out["n_active"] == 126
         np.testing.assert_array_equal(out["ratings"], j_out["ratings"])
@@ -111,7 +112,7 @@ def test_onboard_batch_traditional_parity(rng):
 def test_burst_must_fit_free_slots(rng):
     R = make_ratings(rng, n=20, m=8)
     js = jbuild(jnp.asarray(R), capacity_extra=2)
-    st = state_from_numpy(_jstate_np(js))
+    st = state_from_numpy(_jstate_np(js), device="cpu")
     with pytest.raises(ValueError, match="arena full"):
         baseline.onboard_batch_traditional(st, torch.as_tensor(R[:3]))
 

@@ -40,7 +40,7 @@ def _burst(R, rng):
 def test_find_parity_stepwise(rng):
     R = make_ratings(rng)
     js = jbuild(jnp.asarray(R), capacity_extra=8)
-    st = state_from_numpy(_jstate_np(js))
+    st = state_from_numpy(_jstate_np(js), device="cpu")
     probes = np.asarray(jts.make_probes(jax.random.PRNGKey(0), 3, 4, 120))
     for p, r0 in zip(probes, (R[5], R[99], make_ratings(rng, n=1)[0])):
         jr0, jp = jnp.asarray(r0), jnp.asarray(p)
@@ -69,9 +69,9 @@ def test_onboard_batch_parity(rng, s_max):
     js = jbuild(jnp.asarray(R), capacity_extra=8)
     jst, jstats = jts.onboard_batch(js, jnp.asarray(burst),
                                     jnp.asarray(probes), s_max=s_max)
-    tst, tstats = ts.onboard_batch(state_from_numpy(_jstate_np(js)),
-                                   torch.as_tensor(burst), probes,
-                                   s_max=s_max)
+    tst, tstats = ts.onboard_batch(
+        state_from_numpy(_jstate_np(js), device="cpu"),
+        torch.as_tensor(burst), probes, s_max=s_max)
     for name in ("found", "twin_idx", "n_candidates", "overflowed"):
         np.testing.assert_array_equal(getattr(tstats, name).numpy(),
                                       np.asarray(getattr(jstats, name)),
@@ -92,7 +92,7 @@ def test_twin_against_numpy_oracle(rng):
     vals, idx = build_sorted_lists_np(R)
     st = state_from_numpy({"ratings": R, "norms": np.linalg.norm(R, axis=1),
                            "sim_vals": vals, "sim_idx": idx,
-                           "n_active": 90})
+                           "n_active": 90}, device="cpu")
     gen = torch.Generator().manual_seed(0)
     for r0 in (R[12], R[60], make_ratings(rng, n=1, m=30)[0]):
         probes = ts.make_probes(gen, 1, 5, 90)[0]

@@ -1,0 +1,86 @@
+"""Port parity: the verification kernel's wrapper against the JAX
+reference.
+
+The same numpy inputs go to ``repro.kernels.verify_rows`` (its Pallas
+kernel in interpret mode, the JAX wrapper's default) and to
+``repro_torch.kernels.verify_rows`` on the CPU (the plain version).  The
+flags must match exactly, in float32 and in int8.  The kernel itself is
+held to its plain version on the card in ``test_torch_gpu.py``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels import verify_rows as jverify_rows
+from repro.kernels.verify_rows.ref import verify_rows_ref as jref
+from repro_torch.kernels import launch_counts, verify_rows
+
+
+def _assert_parity(C, r0, valid):
+    before = launch_counts()["verify_rows"]
+    out = verify_rows(torch.as_tensor(C), torch.as_tensor(r0),
+                      torch.as_tensor(valid))
+    assert launch_counts()["verify_rows"] == before    # plain version ran
+    assert out.dtype == torch.bool and out.shape == (C.shape[0],)
+    jout = jverify_rows(jnp.asarray(C), jnp.asarray(r0), jnp.asarray(valid))
+    assert np.array_equal(out.numpy(), np.asarray(jout))
+    rout = jref(jnp.asarray(C), jnp.asarray(r0), jnp.asarray(valid))[:, 0]
+    assert np.array_equal(out.numpy(), np.asarray(rout))
+    return out.numpy()
+
+
+@pytest.mark.parametrize("s,m", [(8, 16), (37, 211), (256, 512), (300, 700)])
+@pytest.mark.parametrize("dtype", [np.float32, np.int8])
+def test_verify_rows_sweep_parity(s, m, dtype):
+    """The shapes of ``tests/test_kernels.py``'s sweep, with a few planted
+    copies of the target so that some flags are true."""
+    rng = np.random.default_rng(s * m)
+    C = rng.integers(0, 6, (s, m)).astype(dtype)
+    C[rng.choice(s, size=min(3, s), replace=False)] = C[s // 2]
+    valid = rng.random(s) < 0.8
+    valid[s // 2] = True
+    out = _assert_parity(C, C[s // 2].copy(), valid)
+    assert out[s // 2]
+
+
+def test_verify_rows_signed_zero_and_nan():
+    """Values compare as values: -0.0 equals 0.0; NaN equals nothing, not
+    even itself."""
+    m = 97
+    rng = np.random.default_rng(1)
+    r0 = rng.integers(0, 6, m).astype(np.float32)
+    r0[[3, 40]] = 0.0
+    C = np.tile(r0, (6, 1))
+    C[1, 3] = -0.0                                    # still a twin
+    C[2, 10] = np.nan                                 # NaN in the row
+    C[4, 96] = 7.0                                    # last column differs
+    C[5, 0] = 1.0 + r0[0]                             # first column differs
+    out = _assert_parity(C, r0, np.ones(6, bool))
+    assert out.tolist() == [True, True, False, True, False, False]
+    r0_nan = r0.copy()
+    r0_nan[10] = np.nan                               # NaN == NaN is false
+    out = _assert_parity(C, r0_nan, np.ones(6, bool))
+    assert not out.any()
+
+
+def test_verify_rows_all_invalid_block():
+    rng = np.random.default_rng(2)
+    C = np.tile(rng.integers(0, 6, 130).astype(np.int8), (40, 1))
+    out = _assert_parity(C, C[0].copy(), np.zeros(40, bool))
+    assert not out.any()
+
+
+def test_verify_rows_promotes_like_jnp():
+    """int8 candidates against a float32 target compare in float32, as
+    jnp's == promotes them."""
+    rng = np.random.default_rng(3)
+    C = rng.integers(0, 6, (20, 75)).astype(np.int8)
+    r0 = C[4].astype(np.float32)
+    r0_off = r0.copy()
+    r0_off[9] += 0.5
+    assert _assert_parity(C, r0, np.ones(20, bool))[4]
+    assert not _assert_parity(C, r0_off, np.ones(20, bool)).any()
