@@ -10,7 +10,9 @@ Phases, in order; the script exits non-zero as soon as a check fails:
                per source, all at once), with the ``-Xptxas -v`` report.
   3. kernels — each kernel against its plain PyTorch version at the main
                path's shapes (plus a ragged small case), timed with CUDA
-               events beside its bound and a library yardstick.
+               events beside its bound and a library yardstick;
+               ``similarity`` at nq = 64 and at the burst's nq = 32 (one
+               tile variant each), and bit for bit on integer ratings.
   4. server  — ``CFServer`` at Douban-film width (58,541 items at
                douban_film's density, 32,768 users): build, 48 planted
                twins + 16 fresh profiles into the 64-slot write buffer, one
@@ -42,6 +44,7 @@ without a CUDA device or without ``src/repro_torch`` beside it.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -58,10 +61,11 @@ CAPACITY_EXTRA = 64
 C_PROBES = 8
 DEVICE = "cuda"
 # Kernel checks at the main path's shapes: the rotation's merge over the
-# base rows (checked in one launch), the 64-user similarity product against
-# the arena, and a 256-user recommend batch at k = 20.
+# base rows (checked in one launch), the similarity product of 64 and of 32
+# (the burst) users against the arena, and a 256-user recommend batch at
+# k = 20.
 MERGE_SHAPE = (N_USERS, N_USERS + 2 * CAPACITY_EXTRA, CAPACITY_EXTRA)
-SIM_NQ = 64
+SIM_NQS = (64, 32)               # the 64-row tile; the server's burst
 KNN_B, KNN_K = 256, 20
 BURST = 32
 MAIN_PATH = ("similarity", "list_merge", "knn_score")
@@ -231,8 +235,16 @@ def check_list_merge(torch, dev) -> dict:
             "shape": [R, L, k]}
 
 
-def check_similarity(torch, dev, arena) -> dict:
-    from repro_torch.kernels.similarity.kernel import similarity_cuda
+def check_similarity(torch, dev, arena, R_host) -> dict:
+    """Both tile variants on the Douban-width arena: nq = 64 (the 64-row
+    tile) and nq = 32 (the 32-row tile, the server's burst width), each
+    against its plain version in f32 and bf16 and timed beside
+    ``torch.matmul`` (kernel, matmul, matmul, kernel); then the burst's 32
+    fresh profiles and 64 such rows (integer ratings) bit for bit."""
+    import numpy as np
+    from repro_torch.data.synthetic import plant_twins
+    from repro_torch.kernels.similarity.kernel import (entry_point,
+                                                       similarity_cuda)
     from repro_torch.kernels.similarity.ops import cosine_similarity
     from repro_torch.kernels.similarity.ref import EPS, similarity_ref
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -245,37 +257,64 @@ def check_similarity(torch, dev, arena) -> dict:
           f"(max err {err:.3g})")
 
     n, m = arena.shape
-    nq = SIM_NQ
-    Q = torch.randn((nq, m), device=dev, generator=g)
-    qn = torch.sqrt(torch.sum(torch.square(Q), dim=1)).clamp_min(EPS)
     rn = torch.sqrt(torch.sum(torch.square(arena), dim=1)).clamp_min(EPS)
-    out = similarity_cuda(Q, arena, qn, rn)
-    ref = similarity_ref(Q, arena, qn, rn)
-    err = float((out - ref).abs().max())
-    check(err <= 1e-5, f"similarity f32 ({nq} x {n} x {m}) within 1e-5 "
-          f"(max err {err:.3g})")
-    Qb, Rb = Q.bfloat16(), arena.bfloat16()
-    err_b = float((similarity_cuda(Qb, Rb, qn, rn)
-                   - similarity_ref(Qb, Rb, qn, rn)).abs().max())
-    check(err_b <= 2e-2, f"similarity bf16 ({nq} x {n} x {m}) within 2e-2 "
-          f"(max err {err_b:.3g})")
-    ms_b = cuda_ms(lambda: similarity_cuda(Qb, Rb, qn, rn), reps=3)
-    del Rb
-    ms = cuda_ms(lambda: similarity_cuda(Q, arena, qn, rn), reps=3)
-    plain_ms = cuda_ms(lambda: similarity_ref(Q, arena, qn, rn), reps=3)
-    lib_ms = cuda_ms(lambda: torch.matmul(Q, arena.T), reps=3)
-    b_ms, b_by = bound(4.0 * (nq * m + n * m + nq * n + nq + n),
-                       2.0 * nq * n * m)
-    log(f"  similarity f32 ({nq}x{n}x{m}): kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, torch.matmul {lib_ms:.3f} ms, bound "
-        f"{b_ms:.3f} ms ({b_by}); bf16 kernel {ms_b:.3f} ms")
-    return {"name": "similarity", "route": "cuda",
-            "source": "src/repro_torch/csrc/similarity.cu",
-            "replaces": "src/repro/kernels/similarity/kernel.py:49",
+    Rb = arena.bfloat16()
+    variants = {}
+    for nq in SIM_NQS:
+        Q = torch.randn((nq, m), device=dev, generator=g)
+        qn = torch.sqrt(torch.sum(torch.square(Q), dim=1)).clamp_min(EPS)
+        out = similarity_cuda(Q, arena, qn, rn)
+        err = float((out - similarity_ref(Q, arena, qn, rn)).abs().max())
+        check(err <= 1e-5, f"similarity f32 ({nq} x {n} x {m}, "
+              f"{entry_point(Q.dtype, nq)}) within 1e-5 (max err {err:.3g})")
+        Qb = Q.bfloat16()
+        err_b = float((similarity_cuda(Qb, Rb, qn, rn)
+                       - similarity_ref(Qb, Rb, qn, rn)).abs().max())
+        check(err_b <= 2e-2, f"similarity bf16 ({nq} x {n} x {m}, "
+              f"{entry_point(Qb.dtype, nq)}) within 2e-2 (max err "
+              f"{err_b:.3g})")
+        del out
+        kernel = lambda: similarity_cuda(Q, arena, qn, rn)   # noqa: E731
+        matmul = lambda: torch.matmul(Q, arena.T)            # noqa: E731
+        turns = [cuda_ms(kernel, 5), cuda_ms(matmul, 5), cuda_ms(matmul, 5),
+                 cuda_ms(kernel, 5)]
+        ms, lib_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        ms_b = cuda_ms(lambda: similarity_cuda(Qb, Rb, qn, rn), reps=3)
+        plain_ms = cuda_ms(lambda: similarity_ref(Q, arena, qn, rn), reps=3)
+        flops = 2.0 * nq * n * m
+        moved = 4.0 * (nq * m + n * m + nq * n + nq + n)
+        b_ms, b_by = bound(moved, flops)
+        log(f"  similarity f32 ({nq}x{n}x{m}, {entry_point(Q.dtype, nq)}): "
+            f"kernel {ms:.3f} ms ({turns[0]:.3f}, {turns[3]:.3f}; "
+            f"{flops / ms / 1e9:.1f} TFLOP/s, {moved / ms / 1e6:.0f} GB/s, "
+            f"{b_ms / ms:.0%} of the bound), torch.matmul {lib_ms:.3f} ms "
+            f"({turns[1]:.3f}, {turns[2]:.3f}), plain {plain_ms:.3f} ms, "
+            f"bound {b_ms:.3f} ms ({b_by}); bf16 kernel {ms_b:.3f} ms")
+        variants[str(nq)] = {
+            "entry": entry_point(Q.dtype, nq), "shape": [nq, n, m],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-            "bf16_ms": ms_b, "bf16_max_abs_err": err_b,
-            "shape": [nq, n, m]}
+            "bf16_ms": ms_b, "bf16_max_abs_err": err_b, "turns_ms": turns}
+    del Rb
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is off for the plain version's fp32 matmul")
+    fresh = np.stack([plant_twins(R_host, 1, seed=SEED + 100 + i)[0]
+                      for i in range(16, 16 + 64)]).astype(np.float32)
+    for k in (BURST, 64):
+        Qi = torch.as_tensor(fresh[:k], device=dev)
+        qn = torch.sqrt(torch.sum(torch.square(Qi), dim=1)).clamp_min(EPS)
+        check(torch.equal(similarity_cuda(Qi, arena, qn, rn),
+                          similarity_ref(Qi, arena, qn, rn)),
+              f"similarity on {k} fresh integer-rating profiles x {n} x {m} "
+              f"({entry_point(Qi.dtype, k)}) bit-identical to the plain "
+              "version")
+    e = dict(variants[str(BURST)])
+    e.update({"name": "similarity", "route": "cuda",
+              "source": "src/repro_torch/csrc/similarity.cu",
+              "replaces": "src/repro/kernels/similarity/kernel.py:49",
+              "variants": variants})
+    return e
 
 
 def check_knn_score(torch, dev, arena) -> dict:
@@ -582,6 +621,7 @@ def drive_kernel_api(torch, cf: dict, bags: dict) -> tuple[dict, dict]:
 
 
 def check_twin_probe(torch, cf: dict, out: dict, flush) -> dict:
+    from repro_torch.kernels._lib import TWIN_PROBE
     from repro_torch.kernels.twin_probe.kernel import twin_probe_cuda
     from repro_torch.kernels.twin_probe.ops import twin_probe
     from repro_torch.kernels.twin_probe.ref import twin_probe_ref
@@ -612,11 +652,28 @@ def check_twin_probe(torch, cf: dict, out: dict, flush) -> dict:
     s0 = cf["s0_twin"]
     ms = cold_ms(lambda: twin_probe_cuda(rows, s0, tol), 20, flush)
     plain_ms = cold_ms(lambda: twin_probe_ref(rows, s0, tol), 20, flush)
-    host_ms = call_ms(lambda: twin_probe_cuda(rows, s0, tol), 200)
+    # Back to back, with the cached ctypes prototype and with the cache
+    # cleared before every call (the prototype set on every call), in eight
+    # alternating turns of 500 calls; the median turn of each.
+    cached = lambda: twin_probe_cuda(rows, s0, tol)            # noqa: E731
+
+    def uncached():
+        TWIN_PROBE._prototypes.clear()
+        twin_probe_cuda(rows, s0, tol)
+    turns = {"cached": [], "uncached": []}
+    for order in ((cached, uncached), (uncached, cached)) * 4:
+        for fn in order:
+            turns["cached" if fn is cached else "uncached"].append(
+                call_ms(fn, 500))
+    host_ms = statistics.median(turns["cached"])
+    host_uncached_ms = statistics.median(turns["uncached"])
     b_ms, b_by = bound(4.0 * c * N + 4.0 * c + N + 4, 3.0 * c * N)
     log(f"  twin_probe ({c}x{N}): kernel {ms:.4f} ms, plain {plain_ms:.4f}"
         f" ms, bound {b_ms:.5f} ms ({b_by}); no single library call; "
-        f"{host_ms:.4f} ms per call back to back")
+        f"{host_ms:.4f} ms per call back to back (median of "
+        f"{[round(x, 4) for x in turns['cached']]}), {host_uncached_ms:.4f} "
+        f"ms with the prototype set on every call (median of "
+        f"{[round(x, 4) for x in turns['uncached']]})")
     log("  twin_probe under the profiler (warm L2):")
     prof = device_share(torch, lambda: twin_probe_cuda(rows, s0, tol), 5)
     return {"name": "twin_probe", "route": "cuda",
@@ -624,7 +681,8 @@ def check_twin_probe(torch, cf: dict, out: dict, flush) -> dict:
             "replaces": "src/repro/kernels/twin_probe/kernel.py:35",
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "call_ms": host_ms, "profiled": prof, "shape": [c, N],
+            "call_ms": host_ms, "call_ms_prototype_every_call":
+            host_uncached_ms, "profiled": prof, "shape": [c, N],
             "count_twin": int(out["probe_twin"][1]),
             "count_fresh": int(out["probe_fresh"][1])}
 
@@ -879,7 +937,7 @@ def main() -> int:
         arena = torch.zeros((N_USERS + CAPACITY_EXTRA, DOUBAN_ITEMS),
                             device=dev)
         arena[:N_USERS] = torch.as_tensor(R_host, device=dev)
-        entries["similarity"] = check_similarity(torch, dev, arena)
+        entries["similarity"] = check_similarity(torch, dev, arena, R_host)
         entries["knn_score"] = check_knn_score(torch, dev, arena)
         del arena
         torch.cuda.empty_cache()

@@ -56,6 +56,8 @@ class Kernel:
         self.source = CSRC / f"{name}.cu"
         self.launches = 0
         self._lib: ctypes.CDLL | None = None
+        # Entry point -> the argument types its prototype was last set for.
+        self._prototypes: dict[str, tuple] = {}
 
     @property
     def _stem(self) -> Path:
@@ -106,14 +108,18 @@ class Kernel:
     def launch(self, fn: str, *args) -> None:
         """Call C entry point ``fn`` on the current stream.  Arguments are
         tensors (passed as device pointers), Python floats (passed as C
-        ``float``) or ints; the stream goes last.  Raises if the launch was
-        refused."""
+        ``float``) or ints; the stream goes last.  The entry point's ctypes
+        prototype is set on its first call and again only when the argument
+        types change.  Raises if the launch was refused."""
         lib = self.load()
         cargs = [_c_arg(a) for a in args]
         cargs.append(ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
         f = getattr(lib, fn)
-        f.argtypes = [type(c) for c in cargs]
-        f.restype = ctypes.c_int
+        types = tuple(type(c) for c in cargs)
+        if self._prototypes.get(fn) != types:
+            f.argtypes = list(types)
+            f.restype = ctypes.c_int
+            self._prototypes[fn] = types
         rc = f(*cargs)
         if rc != 0:
             raise RuntimeError(f"{self.name}.{fn} launch failed: CUDA error "

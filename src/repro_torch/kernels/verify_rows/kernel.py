@@ -3,9 +3,10 @@ TwinSearch candidates.
 
 Replaces ``repro/kernels/verify_rows/kernel.py::verify_rows_pallas``.  On
 an H100 it is bound by device memory (one pass over the (s, m) candidate
-block); one block per row strides over the items and AND-reduces with
-``__syncthreads_and``.  Instantiated for float32 and int8.  Details in the
-source."""
+block); one block per row reads it as a scalar head, a body of aligned
+16-byte loads (r0's matching bytes shifted into place) and a scalar tail,
+and AND-reduces with ``__syncthreads_and``.  Instantiated for float32 and
+int8.  Details in the source."""
 from __future__ import annotations
 
 import torch

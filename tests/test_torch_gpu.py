@@ -84,6 +84,46 @@ def test_similarity_kernel_exact_on_integer_ratings(cuda):
                            similarity.cosine_vs_all(R, norms, R[q]))
 
 
+@pytest.mark.parametrize("nq", [1, 31, 32, 33, 63, 64, 65, 130])
+@pytest.mark.parametrize("m", [7, 100, 515])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_similarity_kernel_variants_and_edges(cuda, nq, m, dtype):
+    """Both tile variants (32 rows of Q up to nq = 32, 64 above) at their
+    edges; n = 300 is not a multiple of the 128-column tile; m = 7 is
+    below one 32-item slice, 100 is not a multiple of it, 515 is odd (rows
+    off 16-byte alignment)."""
+    n = 300
+    rng = np.random.default_rng(nq * 100 + m)
+    Q = torch.as_tensor(rng.normal(size=(nq, m)).astype(np.float32),
+                        device=cuda).to(dtype)
+    R = torch.as_tensor(rng.normal(size=(n, m)).astype(np.float32),
+                        device=cuda).to(dtype)
+    qn = torch.sqrt(torch.sum(torch.square(Q.float()), dim=1))
+    rn = torch.sqrt(torch.sum(torch.square(R.float()), dim=1))
+    out = _launched("similarity", cosine_similarity, Q, R, qn, rn)
+    ref = similarity_ref(Q, R, qn.clamp_min(1e-12), rn.clamp_min(1e-12))
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out, ref, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("nq", [32, 64])
+def test_similarity_kernel_exact_on_integer_ratings_per_variant(cuda, nq):
+    """Integer ratings at each tile variant's full width (nq = 32: the
+    32-row tile; nq = 64: the 64-row tile), m = 1,001 (odd, not a multiple
+    of the slice): bit-identical to the plain version and to
+    ``cosine_vs_all`` row by row."""
+    R = torch.as_tensor(_ratings(np.random.default_rng(nq), 700, 1001),
+                        device=cuda)
+    Q = torch.as_tensor(_ratings(np.random.default_rng(nq + 1), nq, 1001),
+                        device=cuda)
+    rn, qn = similarity.row_norms(R), similarity.row_norms(Q)
+    out = _launched("similarity", cosine_similarity, Q, R, qn, rn)
+    assert torch.equal(out, similarity_ref(Q, R, qn.clamp_min(1e-12),
+                                           rn.clamp_min(1e-12)))
+    for q in range(nq):
+        assert torch.equal(out[q], similarity.cosine_vs_all(R, rn, Q[q]))
+
+
 def _knn_case(rng, B, k, N, m):
     R = (rng.integers(1, 6, (N, m)) * (rng.random((N, m)) < 0.3)
          ).astype(np.float32)
@@ -239,6 +279,56 @@ def test_verify_rows_kernel_exact(cuda, s, m, dtype):
     out = _launched("verify_rows", verify_rows, Ct, r0, vt)
     assert torch.equal(out, verify_rows_ref(Ct, r0, vt))
     assert bool(out[s // 2]) == bool(valid[s // 2])
+
+
+def _row_parts(row: torch.Tensor) -> tuple[int, int]:
+    """(head, tail start) of a row as the kernel splits it: elements before
+    its first 16-byte boundary, then whole 16-byte chunks."""
+    E = row.element_size()
+    head = min(row.numel(), (16 - row.data_ptr() % 16) % 16 // E)
+    return head, head + (row.numel() - head) * E // 16 * (16 // E)
+
+
+@pytest.mark.parametrize("m", [15, 16, 17, 31, 33, 58541])
+@pytest.mark.parametrize("c_off,r_off", [(0, 0), (3, 7), (9, 1)])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float32])
+def test_verify_rows_kernel_head_body_tail(cuda, m, c_off, r_off, dtype):
+    """32 rows, so that at odd m rows start at every offset mod 16 (C and
+    r0 sit c_off and r_off elements into larger buffers, so r0's offset
+    differs from the rows'); rows take turns to differ in one element of
+    their head, the first or last element of their body, their tail, or
+    nowhere."""
+    s = 32
+    rng = np.random.default_rng(m + c_off)
+    target = torch.as_tensor(rng.integers(-100, 100, m), device=cuda).to(
+        dtype)
+    cbuf = torch.zeros(c_off + s * m + 16, dtype=dtype, device=cuda)
+    C = cbuf[c_off:c_off + s * m].view(s, m)
+    C.copy_(target.expand(s, m))
+    rbuf = torch.zeros(r_off + m + 16, dtype=dtype, device=cuda)
+    r0 = rbuf[r_off:r_off + m]
+    r0.copy_(target)
+    expect, hit = [], set()
+    for i in range(s):
+        head, tail = _row_parts(C[i])
+        pos = {1: 0 if head else None,
+               2: head if tail > head else None,
+               3: tail - 1 if tail > head else None,
+               4: tail if tail < m else None}.get(i % 5)
+        if pos is not None:
+            C[i, pos] += 1
+            hit.add(i % 5)
+        expect.append(pos is None)
+    if dtype == torch.int8 and m % 2:
+        assert len({C[i].data_ptr() % 16 for i in range(s)}) == 16
+    if m >= 33:
+        assert hit == {1, 2, 3, 4}
+    valid = torch.ones(s, dtype=torch.bool, device=cuda)
+    valid[5] = False
+    expect[5] = False
+    out = _launched("verify_rows", verify_rows, C, r0, valid)
+    assert torch.equal(out, verify_rows_ref(C, r0, valid))
+    assert out.tolist() == expect
 
 
 def test_verify_rows_kernel_signed_zero_nan_and_invalid(cuda):

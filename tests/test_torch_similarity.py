@@ -116,3 +116,50 @@ def test_burst_must_fit_free_slots(rng):
     with pytest.raises(ValueError, match="arena full"):
         baseline.onboard_batch_traditional(st, torch.as_tensor(R[:3]))
 
+
+
+@pytest.mark.parametrize("nq,bm", [(1, 32), (31, 32), (32, 32), (33, 64),
+                                   (64, 64), (65, 64), (130, 64)])
+@pytest.mark.parametrize("dtype,tag", [(torch.float32, "f32"),
+                                       (torch.bfloat16, "bf16")])
+def test_similarity_variant_by_nq(monkeypatch, nq, bm, dtype, tag):
+    """The wrapper picks the 32-row tile up to the server's burst of 32
+    and the 64-row tile above it, and passes Q, R, the norms and the
+    output as pointers, then nq, n and m as ints and the stream last
+    (checked through a fake library)."""
+    import ctypes
+    import types
+
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.similarity import kernel as skernel
+
+    calls = []
+
+    def entry(name):
+        def call(*cargs):
+            calls.append((name, cargs))
+            return 0
+        return call
+
+    names = [f"cosine_similarity_{t}_bm{b}" for t in ("f32", "bf16")
+             for b in (32, 64)]
+    fake = _lib.Kernel("similarity")
+    monkeypatch.setattr(fake, "load", lambda: types.SimpleNamespace(
+        **{name: entry(name) for name in names}))
+    monkeypatch.setattr(skernel, "SIMILARITY", fake)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    n, m = 300, 77
+    Q, R = torch.zeros((nq, m), dtype=dtype), torch.zeros((n, m), dtype=dtype)
+    qn, rn, out = torch.ones(nq), torch.ones(n), torch.empty((nq, n))
+    assert skernel.block_rows(nq) == bm
+    assert skernel.entry_point(dtype, nq) == f"cosine_similarity_{tag}_bm{bm}"
+    skernel.launch_similarity(Q, R, qn, rn, out)
+    (name, cargs), = calls
+    assert name == f"cosine_similarity_{tag}_bm{bm}"
+    p, i = ctypes.c_void_p, ctypes.c_int
+    assert [type(c) for c in cargs] == [p] * 5 + [i] * 3 + [p]
+    assert [c.value for c in cargs[:5]] == [t.data_ptr()
+                                            for t in (Q, R, qn, rn, out)]
+    assert [c.value for c in cargs[5:8]] == [nq, n, m]
+    assert fake.launches == 1

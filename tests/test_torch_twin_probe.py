@@ -124,3 +124,42 @@ def test_kernel_launch_passes_floats_as_c_float(monkeypatch):
     assert ptr.value == t.data_ptr()
     assert tol.value == float(np.float32(1e-6)) and n.value == 5
     assert kernel.launches == 1
+
+
+def test_kernel_launch_sets_prototype_once_per_argument_types(monkeypatch):
+    """The ctypes prototype is set on an entry point's first call, kept
+    while the argument types stay the same, and set anew when they
+    change."""
+    import ctypes
+    import types
+
+    from repro_torch.kernels import _lib
+
+    class Entry:
+        def __init__(self):
+            object.__setattr__(self, "set_to", [])
+
+        def __setattr__(self, key, value):
+            if key == "argtypes":
+                self.set_to.append(list(value))
+            object.__setattr__(self, key, value)
+
+        def __call__(self, *cargs):
+            return 0
+
+    entry = Entry()
+    kernel = _lib.Kernel("twin_probe")
+    monkeypatch.setattr(kernel, "load",
+                        lambda: types.SimpleNamespace(twin_probe_f32=entry))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    t = torch.zeros(3)
+    p, f, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
+    kernel.launch("twin_probe_f32", t, 1e-6, 5)
+    kernel.launch("twin_probe_f32", t, 0.5, 7)
+    assert entry.set_to == [[p, f, i, p]]
+    kernel.launch("twin_probe_f32", t, 2, 7)        # an int for the float
+    assert entry.set_to == [[p, f, i, p], [p, i, i, p]]
+    kernel.launch("twin_probe_f32", t, 3, 9)
+    assert len(entry.set_to) == 2
+    assert entry.restype is ctypes.c_int and kernel.launches == 4
