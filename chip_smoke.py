@@ -31,12 +31,30 @@ Phases, in order; the script exits non-zero as soon as a check fails:
                after: each of the three must have run.  Then each output
                against its plain version (exact), a ragged small case, and
                cold-L2 timings beside the bound and a library yardstick.
-  6. movielens — the same request script at 943 x 1,682 on the card and on
+  6. durability — a durable ``CFServer`` at the same width: WAL (fsync
+               on) and checkpoints in a temporary directory on local disk
+               (about 16 GB each, two at once at most), incremental rotation
+               in 4,096-row slices, twin and fresh onboards, 32 add_ratings
+               (base rows and frozen burst rows while the plan is in
+               flight), ``step_maintenance``, one mid-run checkpoint, and
+               the onboard that completes the swap.  The live state is
+               copied to the host and the server dropped (the crash);
+               ``CFServer.recover`` must then equal the copy on every leaf.
+               Counts zeroed before, read after: list_merge must have run.
+               Then the plan's merge at the phase's own shapes (a 4,096-row
+               slice and the dirty rows, k = 48) on the card against the
+               plain version on the CPU, bit for bit.  Prints
+               ``{"durability": {...}}`` from the servers' ``ServerStats``
+               (checkpoint save/restore, WAL append and add_rating
+               latencies, init_cache, plan steps, swap pause, recovery
+               split) and the peak device memory.
+  7. movielens — the same request script at 943 x 1,682 on the card and on
                the CPU (the plain versions), held to the parity tests'
                tolerances.
-  7. summary — ``{"kernels": [...]}`` (all six kernels, each with the
-               launches of the phase that drove it), the nvidia-smi line,
-               and last ``{"ok": true, "device": {...}}``.
+  8. summary — ``{"kernels": [...]}`` (all six kernels, each with the
+               launches of the phases that drove it: 4 and 6 for the main
+               path's three, 5 for the others), the nvidia-smi line, and
+               last ``{"ok": true, "device": {...}}``.
 
 It imports neither ``jax`` nor the JAX package, and refuses to run (exit 2)
 without a CUDA device or without ``src/repro_torch`` beside it.
@@ -68,6 +86,10 @@ MERGE_SHAPE = (N_USERS, N_USERS + 2 * CAPACITY_EXTRA, CAPACITY_EXTRA)
 SIM_NQS = (64, 32)               # the 64-row tile; the server's burst
 KNN_B, KNN_K = 256, 20
 BURST = 32
+# Phase 6: rotation slices of 4,096 base rows (8 slices for 32,768 rows); a
+# checkpoint every 32 onboards (one mid-run, before the plan starts); 32
+# add_ratings.
+DUR_BUDGET_ROWS, DUR_SNAPSHOT_EVERY, DUR_ADDS = 4096, 32, 32
 MAIN_PATH = ("similarity", "list_merge", "knn_score")
 API_KERNELS = ("twin_probe", "verify_rows", "embedding_bag")
 # xDeepFM (configs/xdeepfm.py, configs/_fields.py::CRITEO39, taken as
@@ -88,9 +110,13 @@ class CheckFailed(Exception):
 
 
 def check(cond: bool, what: str) -> None:
+    check_quiet(cond, what)
+    print(f"  ok: {what}", flush=True)
+
+
+def check_quiet(cond: bool, what: str) -> None:
     if not cond:
         raise CheckFailed(what)
-    print(f"  ok: {what}", flush=True)
 
 
 def log(msg: str) -> None:
@@ -812,7 +838,343 @@ def run_kernel_api(torch, dev, srv, R_host) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: MovieLens shape, card against CPU
+# Phase 6: durability at Douban width
+# ---------------------------------------------------------------------------
+
+def dir_bytes(path: str) -> int:
+    """Bytes of the files under ``path``."""
+    import os
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def pct(xs, q: float):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(len(xs) * q))] if xs else None
+
+
+def durability_stream(R_host) -> tuple[list, list]:
+    """Planted twins of heavy users and fresh profiles, interleaved (both
+    onboard paths), from the seed; and 32 (item, value) pairs for
+    add_rating."""
+    import numpy as np
+    from repro_torch.data.synthetic import plant_twins
+    rng = np.random.default_rng(SEED + 11)
+    heavy = np.flatnonzero((R_host != 0).sum(axis=1) >= 50)
+    twins = [R_host[int(u)].astype(np.float32)
+             for u in rng.choice(heavy, size=44, replace=False)]
+    fresh = [plant_twins(R_host, 1, seed=SEED + 500 + i)[0].astype(
+        np.float32) for i in range(28)]
+    stream = [x for pair in zip(twins, fresh) for x in pair] + twins[28:]
+    items = rng.integers(0, DOUBAN_ITEMS, size=DUR_ADDS)
+    values = rng.integers(0, 6, size=DUR_ADDS).astype(float)   # 0 removes
+    return stream, list(zip(items.tolist(), values.tolist()))
+
+
+def run_durability(torch, dev, R_host, sync_rotation_ms: float) -> dict:
+    """A durable server at Douban width: WAL (fsync on) and checkpoints on
+    local disk, incremental rotation in 4,096-row slices, add_ratings on
+    base rows and on frozen burst rows while the plan is in flight, the
+    swap; then the live state copied to the host, the server dropped (the
+    crash), and ``CFServer.recover`` held to the copy leaf by leaf.  The
+    times are the servers' own ``ServerStats``; the plan's merge is held
+    to the plain path on its own inputs afterwards."""
+    import shutil
+    import tempfile
+    import zlib
+    import numpy as np
+    from repro_torch.bridge import FIELDS
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import (CFServer, LadderConfig, RotationConfig,
+                                     ServerConfig, SnapshotConfig, WalConfig)
+    from repro_torch.training.elastic import StragglerMonitor
+
+    capacity = N_USERS + CAPACITY_EXTRA
+    arena_bytes = capacity * (DOUBAN_ITEMS + 1 + 2 * capacity) * 4
+    # The temporary directory goes where there is more room: the system's
+    # temporary directory or the checkout's build directory.
+    places = [Path(tempfile.gettempdir()), ROOT / "build"]
+    for place in places:
+        place.mkdir(parents=True, exist_ok=True)
+        u = shutil.disk_usage(place)
+        log(f"  {place}: {u.free / 1e9:.1f} GB free of {u.total / 1e9:.1f} "
+            "GB")
+    place = max(places, key=lambda p: shutil.disk_usage(p).free)
+    root = tempfile.mkdtemp(prefix="chip_smoke_durability_", dir=place)
+    try:
+        check(shutil.disk_usage(root).free > 2.2 * arena_bytes,
+              f"room in {root} for two {arena_bytes / 1e9:.2f} GB "
+              "checkpoints at once")
+        cfg = ServerConfig(
+            capacity_extra=CAPACITY_EXTRA, c_probes=C_PROBES,
+            snapshot=SnapshotConfig(every=DUR_SNAPSHOT_EVERY, keep=1,
+                                    dir=f"{root}/snap"),
+            wal=WalConfig(dir=f"{root}/wal", fsync=True),
+            rotation=RotationConfig(budget_rows=DUR_BUDGET_ROWS),
+            ladder=LadderConfig(monitor=StragglerMonitor(
+                window=64, straggler_ratio=50.0, hang_timeout_s=30.0,
+                consecutive_to_shrink=3)))
+        stream, adds = durability_stream(R_host)
+        live, stats, add_ms, counts0, memory, merge_inputs = drive_durable(
+            torch, dev, R_host, cfg, stream, adds,
+            np.random.default_rng(SEED + 12), launch_counts,
+            reset_launch_counts)
+        ckpt_bytes = dir_bytes(f"{root}/snap")      # the mid-run checkpoint
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = CFServer.recover(R_host, cfg, device=dev)
+        torch.cuda.synchronize()
+        recover_s = time.perf_counter() - t0
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        rec_ckpt_bytes = dir_bytes(f"{root}/snap")  # recovery's own
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    st = rec.state
+    check(st.n_active == int(live["n_active"])
+          and rec.n_base == live["n_base"] and st.capacity == live["capacity"],
+          f"recovered n_active {st.n_active}, n_base {rec.n_base}, capacity "
+          f"{st.capacity} equal the live server's")
+    for key in FIELDS[:4]:
+        leaf = getattr(st, key)
+        same = all(np.array_equal(leaf[r0:r0 + 4096].cpu().numpy(),
+                                  live[key][r0:r0 + 4096])
+                   for r0 in range(0, leaf.shape[0], 4096))
+        check(leaf.shape == live[key].shape and same,
+              f"recovered {key} {tuple(leaf.shape)} equal to the live copy")
+    check(rec._gen.get_state().equal(live["generator"]),
+          "recovered probe generator equal to the live one")
+    check(counts["list_merge"] > 0, f"kernel list_merge launched "
+          f"{counts['list_merge']} times in the durability phase")
+    log(f"  launches in this phase: {counts} (similarity: the server's "
+        "single-user traditional build is a mat-vec, cosine_vs_all, in "
+        "both packages)")
+    rstats = rec.stats
+    rec_summary = rstats.summary()
+    rec_inits = list(rstats.cache_init_ms)
+    rec_save_ms = rstats.snapshot_save_ms[-1]
+    del rec, st
+    torch.cuda.empty_cache()
+    merge_checks = check_plan_merge(torch, dev, merge_inputs)
+
+    # CRC32 and the copy to the host, each on its own, over the live copy's
+    # four arrays: the two parts of a save that are not the disk.
+    live_bytes = sum(live[key].nbytes for key in FIELDS[:4])
+    t0 = time.perf_counter()
+    for key in FIELDS[:4]:
+        zlib.crc32(memoryview(live[key].reshape(-1)).cast("B"))
+    crc_s = time.perf_counter() - t0
+
+    save_s = [ms / 1e3 for ms in stats["snapshot_save_ms"]] + [
+        rec_save_ms / 1e3]
+    save_bytes = [ckpt_bytes] * len(stats["snapshot_save_ms"]) + [
+        rec_ckpt_bytes]
+    restore_s = rec_summary["recover_restore_ms"] / 1e3
+    replay_s = rec_summary["recover_replay_ms"] / 1e3
+    s = stats["summary"]
+    plain_adds = [ms for ms, init in add_ms if not init]
+    metrics = {
+        "users": N_USERS, "items": DOUBAN_ITEMS, "dir": str(place),
+        "checkpoint_gb": [b / 1e9 for b in save_bytes],
+        "checkpoint_save_s": save_s,
+        "checkpoint_save_gb_s": [b / 1e9 / t for b, t in zip(save_bytes,
+                                                             save_s)],
+        "to_host_gb_s": live_bytes / 1e9 / live["to_host_s"],
+        "crc32_gb_s": live_bytes / 1e9 / crc_s,
+        "checkpoint_restore_s": restore_s,
+        "checkpoint_restore_gb_s": ckpt_bytes / 1e9 / restore_s,
+        "wal_appends": s["wal_appends"],
+        "wal_append_p50_ms": s["wal_append_p50_ms"],
+        "wal_append_p99_ms": s["wal_append_p99_ms"],
+        "wal_append_max_ms": max(stats["wal_append_ms"]),
+        "add_ratings": len(add_ms), "add_rating_p50_ms": pct(plain_adds, 0.5),
+        "add_rating_p99_ms": pct(plain_adds, 0.99),
+        "add_rating_with_init_ms": [ms for ms, init in add_ms if init],
+        "init_cache_s": [ms / 1e3 for ms in stats["cache_init_ms"]],
+        "recover_init_cache_s": [ms / 1e3 for ms in rec_inits],
+        "plan_steps": len(stats["plan_step_ms"]),
+        "plan_step_p50_ms": s["plan_step_p50_ms"],
+        "plan_step_max_ms": s["plan_step_max_ms"],
+        "plan_restarts": s["plan_restarts"],
+        "forced_drains": s["forced_drains"],
+        "swap_pause_ms": s["rotation_pause_max_ms"],
+        "sync_rotation_pause_ms": sync_rotation_ms,
+        "rotation_total_ms": s["rotation_max_ms"],
+        "onboarded": s["onboarded"], "twin_hits": s["twin_hits"],
+        "fallbacks": s["fallbacks"],
+        "recover_s": recover_s, "recover_restore_s": restore_s,
+        "recover_replay_s": replay_s, "recover_snapshot_s": save_s[-1],
+        "wal_replayed": rec_summary["wal_replayed"],
+        "peak_gb": peak / 1e9, "memory_gb": memory, "launches": counts,
+        "launches_before_recovery": counts0, "plan_merge": merge_checks}
+    log(f"  checkpoints of {', '.join(f'{b / 1e9:.2f}' for b in save_bytes)}"
+        f" GB: save {', '.join(f'{t:.2f}' for t in save_s)} s, restore "
+        f"{restore_s:.2f} s ({metrics['checkpoint_restore_gb_s']:.2f} GB/s);"
+        f" on the live copy ({live_bytes / 1e9:.2f} GB) the copy to the host"
+        f" runs at {metrics['to_host_gb_s']:.2f} GB/s and CRC32 at "
+        f"{metrics['crc32_gb_s']:.2f} GB/s")
+    log(f"  WAL append p50 {metrics['wal_append_p50_ms']:.3f} ms p99 "
+        f"{metrics['wal_append_p99_ms']:.3f} ms max "
+        f"{metrics['wal_append_max_ms']:.3f} ms ({s['wal_appends']} appends,"
+        f" fsync); add_rating p50 {metrics['add_rating_p50_ms']:.3f} ms p99 "
+        f"{metrics['add_rating_p99_ms']:.3f} ms ({len(plain_adds)} calls; "
+        f"the calls that built the cache: "
+        f"{metrics['add_rating_with_init_ms']} ms); init_cache "
+        f"{metrics['init_cache_s']} s")
+    log(f"  plan step p50 {metrics['plan_step_p50_ms']:.2f} ms "
+        f"({metrics['plan_steps']} ticks, {metrics['plan_restarts']} "
+        f"restarts, {metrics['forced_drains']} forced drains); swap pause "
+        f"{metrics['swap_pause_ms']:.1f} ms (synchronous rotation in phase "
+        f"4: {sync_rotation_ms:.1f} ms); recovery {recover_s:.2f} s (restore"
+        f" {restore_s:.2f}, replay {replay_s:.2f} of "
+        f"{metrics['wal_replayed']} records, snapshot {save_s[-1]:.2f}); "
+        f"peak memory {peak / 1e9:.2f} GB")
+    return metrics
+
+
+def drive_durable(torch, dev, R_host, cfg, stream, adds, rng, launch_counts,
+                  reset_launch_counts) -> tuple:
+    """The live half of phase 6: requests until the incremental swap, then
+    the live state copied to the host and the server dropped.  Also keeps,
+    on the host, the inputs of one plan slice and of one dirty-row batch
+    (``check_plan_merge``)."""
+    from repro_torch.bridge import state_to_numpy
+    from repro_torch.core.rotation import unsorted_rows
+    from repro_torch.serving import CFServer
+
+    memory = {}
+
+    def note_memory(tag: str) -> None:
+        memory[tag] = (torch.cuda.memory_allocated() / 1e9,
+                       torch.cuda.max_memory_allocated() / 1e9)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    note_memory("start")
+    reset_launch_counts()
+    srv = CFServer(R_host, cfg, device=dev)
+    note_memory("built")
+    add_ms: list[tuple[float, bool]] = []     # (ms, built the cache)
+    adds = iter(adds)
+
+    def add(user: int) -> None:
+        item, value = next(adds)
+        inits = len(srv.stats.cache_init_ms)
+        ok = srv.add_rating(int(user), int(item), float(value))
+        check_quiet(ok, f"add_rating({user}, {item}, {value}) applied")
+        add_ms.append((srv.stats.add_rating_ms[-1],
+                       len(srv.stats.cache_init_ms) > inits))
+
+    def onboard(r) -> None:
+        check_quiet(srv.onboard_user(r).ok, "onboard ok")
+
+    reserve = CAPACITY_EXTRA // 4
+    for i in range(CAPACITY_EXTRA - reserve):        # up to the reserve
+        onboard(stream[i])
+        if i == DUR_SNAPSHOT_EVERY // 2:
+            for u in rng.choice(N_USERS, size=8, replace=False):
+                add(u)                               # base rows
+    note_memory("onboarded")
+    check(srv.stats.snapshots == 2, "one mid-run checkpoint (and the "
+          "construction's), the WAL truncated through it")
+    i = CAPACITY_EXTRA - reserve
+    onboard(stream[i])                               # the plan starts
+    plan = srv._plan
+    check(plan is not None and not plan.done and plan.k == i,
+          f"incremental rotation in flight over a burst of {i}")
+    for u in (5, 100, N_USERS - 1, 2 * DUR_BUDGET_ROWS + 7):
+        add(u)                                       # base rows: dirty
+    for u in srv.n_base + rng.choice(i, size=4, replace=False):
+        add(u)                                       # burst rows: restart
+    check(plan.restarts == 1, "a burst-row add_rating restarted the plan")
+    del plan                     # the swap must free the accumulators
+    note_memory("plan")
+    for _ in range(3):
+        srv.step_maintenance()
+    dirty = sorted(int(u) for u in rng.choice(N_USERS, size=DUR_ADDS - 16,
+                                              replace=False))
+    for u in dirty:
+        add(u)                                       # dirty rows, cache on
+    # What the plan merges: the first slice of base rows, and the rows
+    # just dirtied, each against the frozen burst block.
+    st, n_base = srv.state, srv.n_base
+    U = unsorted_rows(st.sim_vals, st.sim_idx, slice(n_base, n_base + i))
+    rows = torch.as_tensor(dirty, device=dev)
+    merge_inputs = {
+        "n_base": n_base, "n_frozen": n_base + i,
+        "slice": tuple(t.cpu() for t in (
+            st.sim_vals[:DUR_BUDGET_ROWS], st.sim_idx[:DUR_BUDGET_ROWS],
+            U[:, :DUR_BUDGET_ROWS])),
+        "rows": tuple(t.cpu() for t in (st.sim_vals[rows], st.sim_idx[rows],
+                                        U[:, rows]))}
+    del st, U, rows
+    while srv._plan is not None:
+        i += 1
+        onboard(stream[i])
+    note_memory("swapped")
+    check(srv.stats.rotations == 1 and not srv._plan,
+          f"onboard {i + 1} completed the incremental swap")
+    s = srv.stats
+    stats = {"summary": s.summary(),
+             "snapshot_save_ms": list(s.snapshot_save_ms),
+             "wal_append_ms": list(s.wal_append_ms),
+             "cache_init_ms": list(s.cache_init_ms),
+             "plan_step_ms": list(s.plan_step_ms)}
+    counts0 = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    live = state_to_numpy(srv.state)
+    live.update(to_host_s=time.perf_counter() - t0, n_base=srv.n_base,
+                capacity=srv.state.capacity, generator=srv._gen.get_state())
+    del srv, s
+    torch.cuda.synchronize()
+    note_memory("dropped")
+    log("  device memory (allocated, peak so far) GB: " + ", ".join(
+        f"{k} {a:.2f}/{p:.2f}" for k, (a, p) in memory.items()))
+    check(memory["dropped"][0] < memory["start"][0] + 0.5,
+          f"the dropped server released the card ({memory['dropped'][0]:.2f}"
+          " GB allocated)")
+    torch.cuda.empty_cache()
+    return live, stats, add_ms, counts0, memory, merge_inputs
+
+
+def check_plan_merge(torch, dev, inp) -> list[dict]:
+    """The plan's merge at the shapes phase 6 gives it (a slice of
+    ``DUR_BUDGET_ROWS`` base rows, and the dirty rows through the
+    index-tensor branch; the replayed ``rotate_commit`` merges slices of
+    that shape too), on the card and on the CPU (the plain version) from
+    the same inputs: bit for bit.  Run after the phase's launch counts are
+    read."""
+    from repro_torch.core.rotation import merge_base_rows
+    n_base, n_frozen = inp["n_base"], inp["n_frozen"]
+    buf = torch.arange(n_base, n_frozen, dtype=torch.int32)
+    out = []
+    for branch in ("slice", "rows"):
+        v, i, U = inp[branch]
+        rows = (slice(0, v.shape[0]) if branch == "slice"
+                else torch.arange(v.shape[0]))
+        t0 = time.perf_counter()
+        pv, pi = merge_base_rows(v, i, U, rows, buf, n_base=n_base)
+        plain_s = time.perf_counter() - t0
+        kv, ki = merge_base_rows(
+            v.to(dev), i.to(dev), U.to(dev),
+            rows if branch == "slice" else rows.to(dev), buf.to(dev),
+            n_base=n_base)
+        kv, ki = kv.cpu(), ki.cpu()
+        err = float((kv - pv).abs().max())
+        shape = [v.shape[0], v.shape[1], n_frozen - n_base]
+        check(torch.equal(kv, pv) and torch.equal(ki, pi),
+              f"plan merge ({branch}: {shape[0]} rows of width {shape[1]}, "
+              f"k={shape[2]}) on the card bit-identical to the plain version"
+              f" on the CPU (max diff {err:.3g}; plain {plain_s:.1f} s)")
+        out.append({"branch": branch, "shape": shape, "max_abs_err": err,
+                    "plain_cpu_s": plain_s})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: MovieLens shape, card against CPU
 # ---------------------------------------------------------------------------
 
 def movielens_script(torch, device: str):
@@ -952,18 +1314,27 @@ def main() -> int:
         del srv
         torch.cuda.empty_cache()
 
-        log("== 6. MovieLens shape, card against CPU")
+        log("== 6. durability at Douban width")
+        durability = run_durability(torch, dev, R_host, server["rotation_ms"])
+        torch.cuda.empty_cache()
+
+        log("== 7. MovieLens shape, card against CPU")
         run_movielens(torch)
 
-        log("== 7. summary")
+        log("== 8. summary")
         kernels = []
         for kname in MAIN_PATH + API_KERNELS:
             e = dict(entries[kname])
-            e["launches"] = (server["launches"] if kname in MAIN_PATH
-                             else api_launches)[kname]
+            e["launches"] = (server["launches"][kname]
+                             + durability["launches"][kname]
+                             if kname in MAIN_PATH else api_launches[kname])
+            if kname == "list_merge":
+                e["plan_merge"] = durability["plan_merge"]
             kernels.append(e)
-        log(f"  total {time.perf_counter() - t_start:.1f} s")
-        print(json.dumps({"server": server}))
+        total_s = time.perf_counter() - t_start
+        log(f"  total {total_s:.1f} s")
+        print(json.dumps({"server": server, "total_s": total_s}))
+        print(json.dumps({"durability": durability}))
         print(json.dumps({"kernels": kernels}))
         print(nvidia_smi_line())
         print(json.dumps({"ok": True, "device": {

@@ -24,8 +24,8 @@ from repro_torch.core.maintenance import (insert_into_lists,
                                           merge_new_users_into_base,
                                           splice_twin, splice_twins,
                                           twin_sims_block)
-from repro_torch.core.rotation import (rotate_arena, rotate_arena_frozen,
-                                       unsorted_rows)
+from repro_torch.core.rotation import (RotationPlan, rotate_arena,
+                                       rotate_arena_frozen, unsorted_rows)
 
 __all__ = [
     "CFState", "OnboardStats", "TwinResult", "SENTINEL", "SENTINEL_GATE",
@@ -40,6 +40,6 @@ __all__ = [
     "probe_sims", "candidate_mask", "verify_candidates",
     "insert_into_lists", "insert_batch_into_lists",
     "merge_new_users_into_base", "splice_twin", "splice_twins",
-    "twin_sims_block", "rotate_arena", "rotate_arena_frozen",
+    "twin_sims_block", "RotationPlan", "rotate_arena", "rotate_arena_frozen",
     "unsorted_rows",
 ]

@@ -45,15 +45,26 @@ def rows_sorted_finite(vals: torch.Tensor, n_active: int) -> torch.Tensor:
     return (finite & ascending) | ~live
 
 
+# Live rows per slice of the health sweep: the whole Douban-width arena at
+# once would hold about 12 GB of temporaries (``isfinite`` of 7.7 GB of
+# ratings allocates their absolute values).
+HEALTH_CHUNK_ROWS = 4096
+
+
 def arena_healthy(sim_vals: torch.Tensor, ratings: torch.Tensor,
                   norms: torch.Tensor, n_active: int) -> torch.Tensor:
     """() bool — live similarity lists sorted ascending with no non-finite
     values, live rating rows and norms finite, ``n_active`` within
-    capacity."""
+    capacity.  Swept in slices of ``HEALTH_CHUNK_ROWS`` live rows (rows
+    past ``n_active`` pass by definition), with no sync between slices."""
     R = ratings.shape[0]
+    n_live = min(max(n_active, 0), R)
+    ok = torch.ones((), dtype=torch.bool, device=ratings.device)
+    for r0 in range(0, n_live, HEALTH_CHUNK_ROWS):
+        r1 = min(n_live, r0 + HEALTH_CHUNK_ROWS)
+        ok &= torch.all(rows_sorted_finite(sim_vals[r0:r1], r1 - r0))
+        ok &= torch.all(torch.isfinite(ratings[r0:r1]))
     live = torch.arange(R, device=ratings.device) < n_active
-    lists_ok = torch.all(rows_sorted_finite(sim_vals, n_active))
-    ratings_ok = torch.all(torch.all(torch.isfinite(ratings), dim=1) | ~live)
     norms_ok = torch.all((torch.isfinite(norms) & (norms >= 0)) | ~live)
     n_ok = 0 <= n_active <= R
-    return lists_ok & ratings_ok & norms_ok & n_ok
+    return ok & norms_ok & n_ok

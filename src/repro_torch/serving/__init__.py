@@ -10,6 +10,7 @@ from repro_torch.serving.dedup import (DedupPlan, dedup_batch, dedup_rows,
                                        fan_out, prompt_hash)
 from repro_torch.serving.guard import (Quarantine, Rejection, RetryPolicy,
                                        call_with_retry)
+from repro_torch.serving.wal import WalRecord, WriteAheadLog
 
 __all__ = [
     "CFServer", "OnboardResult", "ServerStats",
@@ -17,5 +18,6 @@ __all__ = [
     "LadderConfig",
     "LEVEL_TWINSEARCH", "LEVEL_TRADITIONAL", "LEVEL_DEGRADED", "LEVEL_SHED",
     "Quarantine", "Rejection", "RetryPolicy", "call_with_retry",
+    "WalRecord", "WriteAheadLog",
     "DedupPlan", "dedup_batch", "dedup_rows", "fan_out", "prompt_hash",
 ]

@@ -20,6 +20,8 @@ from repro.kernels.embedding_bag.ref import embedding_bag_ref as jref
 from repro_torch.kernels import embedding_bag, launch_counts
 from tests.hypcompat import given, settings, st
 
+torch.set_num_threads(2)
+
 TOL = 1e-5
 
 

@@ -9,7 +9,12 @@ Run it on the card with ``python -m pytest -m gpu tests/test_torch_gpu.py``.
 Tolerances: ``similarity`` within 1e-5 (f32) and 2e-2 (bf16), the bounds
 of ``tests/test_kernels.py``; ``knn_score``, ``embedding_bag`` and
 ``list_merge`` bit-for-bit (same serial order; pure data movement);
-``twin_probe`` and ``verify_rows`` exactly (masks, counts and flags).
+``twin_probe`` and ``verify_rows`` exactly (masks, counts and flags).  The
+write path: ``RotationPlan.finalize`` bit-identical to
+``rotate_arena_frozen`` on the card; ``add_rating`` on the card
+bit-identical to the CPU plain path (integer ratings: every dot is an exact
+integer); a checkpoint from the card restores every leaf exactly; a crashed
+and recovered server on the card bit-identical to the uncrashed one.
 """
 from __future__ import annotations
 
@@ -32,7 +37,14 @@ from repro_torch.kernels.similarity.ops import cosine_similarity
 from repro_torch.kernels.similarity.ref import similarity_ref
 from repro_torch.kernels.twin_probe.ref import twin_probe_ref
 from repro_torch.kernels.verify_rows.ref import verify_rows_ref
-from repro_torch.serving import CFServer, ServerConfig, SnapshotConfig
+from repro_torch.core import (RotationPlan, build_state, rotate_arena_frozen,
+                              update)
+from repro_torch.serving import (CFServer, RotationConfig, ServerConfig,
+                                 SnapshotConfig, WalConfig)
+from repro_torch.testing import SimulatedCrash, install_crash
+from repro_torch.training import checkpoint
+
+torch.set_num_threads(2)
 
 pytestmark = pytest.mark.gpu
 
@@ -393,3 +405,112 @@ def test_embedding_bag_kernel_refuses_other_dtypes(cuda):
     with pytest.raises(NotImplementedError, match="bfloat16"):
         embedding_bag(table, torch.zeros((2, 2), dtype=torch.int32,
                                          device=cuda))
+
+
+def _card_state(cuda, rng, n=300, m=90, extra=16):
+    """A card arena with a burst of twins and fresh rows in its write
+    region, and its CPU copy."""
+    R = _ratings(rng, n, m)
+    srv = CFServer(R, ServerConfig(capacity_extra=extra, c_probes=4),
+                   device="cuda")
+    fresh = _ratings(np.random.default_rng(5), extra // 2, m)
+    for r in [*R[:extra // 2], *fresh][:extra - 2]:
+        assert srv.onboard_user(r).ok
+    return R, srv
+
+
+def test_rotation_plan_finalize_equals_frozen_rotation_on_card(cuda):
+    rng = np.random.default_rng(0)
+    _, srv = _card_state(cuda, rng)
+    n_base, st = srv.n_base, srv.state
+    plan = RotationPlan(st, n_base=n_base, extra=9, chunk_rows=37)
+    launches = launch_counts()["list_merge"]
+    plan.step(st, 80)
+    assert launch_counts()["list_merge"] > launches
+    cache = update.init_cache(st.ratings)
+    for u, i, v in ((3, 2, 5.0), (n_base + 1, 4, 1.0), (17, 0, 0.0)):
+        st, cache = update.add_rating(st, cache, u, i, v)
+        plan.note_write(u)
+    assert plan.restarts == 1
+    while not plan.done:
+        plan.step(st, 80)
+    st, cache = update.add_rating(st, cache, 40, 7, 2.0)   # dirty
+    plan.note_write(40)
+    out = state_to_numpy(plan.finalize(st))
+    ref = state_to_numpy(rotate_arena_frozen(st, n_base=n_base,
+                                             n_frozen=plan.n_frozen,
+                                             extra=9))
+    host = state_to_numpy(rotate_arena_frozen(
+        state_from_numpy(state_to_numpy(st), "cpu"), n_base=n_base,
+        n_frozen=plan.n_frozen, extra=9))
+    for key in ("ratings", "norms", "sim_vals", "sim_idx", "n_active"):
+        np.testing.assert_array_equal(out[key], ref[key], err_msg=key)
+        np.testing.assert_array_equal(out[key], host[key], err_msg=key)
+
+
+def test_add_rating_on_card_matches_cpu_plain_path(cuda):
+    rng = np.random.default_rng(1)
+    R = _ratings(rng, 400, 120)
+    states = {d: build_state(torch.as_tensor(R, device=d),
+                             capacity_extra=8) for d in ("cuda", "cpu")}
+    caches = {d: update.init_cache(st.ratings) for d, st in states.items()}
+    assert torch.equal(caches["cuda"].dots.cpu(), caches["cpu"].dots)
+    for u, i, v in ((7, 3, 5.0), (7, 3, 2.0), (399, 0, 0.0), (12, 119, 4.0)):
+        for d in states:
+            states[d], caches[d] = update.add_rating(states[d], caches[d],
+                                                     u, i, v)
+    a, b = state_to_numpy(states["cuda"]), state_to_numpy(states["cpu"])
+    for key in ("ratings", "norms", "sim_vals", "sim_idx", "n_active"):
+        np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    assert torch.equal(caches["cuda"].dots.cpu(), caches["cpu"].dots)
+    assert torch.equal(caches["cuda"].sq.cpu(), caches["cpu"].sq)
+
+
+def test_checkpoint_round_trip_from_card(cuda, tmp_path):
+    rng = np.random.default_rng(2)
+    _, srv = _card_state(cuda, rng)
+    st = srv.state
+    checkpoint.save(str(tmp_path), 5, st, extra={"n_base": srv.n_base})
+    template = st._replace(**{f: getattr(st, f)[:0] for f in
+                              ("ratings", "norms", "sim_vals", "sim_idx")})
+    out, step, extra = checkpoint.restore(str(tmp_path), template)
+    assert (step, extra["n_base"]) == (5, srv.n_base)
+    assert out.n_active == st.n_active
+    for a, b in zip(out[:4], st[:4]):
+        assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_durable_server_on_card_recovers_bit_exact(cuda, tmp_path):
+    """Crash at the incremental swap's commit record, recover on the card:
+    equal to an uncrashed card server after the same requests."""
+    rng = np.random.default_rng(3)
+    R = _ratings(rng, 200, 60)
+    fresh = _ratings(np.random.default_rng(4), 6, 60)
+    stream = [R[3], fresh[0], R[9], fresh[1], R[3], fresh[2], R[50],
+              fresh[3], R[60], fresh[4], R[70], fresh[5]]
+
+    def cfg(tag):
+        return ServerConfig(
+            capacity_extra=8, c_probes=4,
+            snapshot=SnapshotConfig(every=5, dir=str(tmp_path / f"{tag}-s")),
+            wal=WalConfig(dir=str(tmp_path / f"{tag}-w")),
+            rotation=RotationConfig(budget_rows=64))
+
+    def drive(srv, ops):
+        for i, r in ops:
+            assert srv.onboard_user(r).ok
+            assert srv.add_rating(i * 7 % 200, i % 60, 1.0 + i % 5)
+
+    oracle = CFServer(R, cfg("oracle"), device="cuda")
+    drive(oracle, enumerate(stream))
+    victim = CFServer(R, cfg("victim"), device="cuda")
+    install_crash(victim, "rotation.commit_post_wal")
+    with pytest.raises(SimulatedCrash):
+        drive(victim, enumerate(stream))
+    recovered = CFServer.recover(R, cfg("victim"), device="cuda")
+    done = recovered.state.n_active - 200
+    drive(recovered, list(enumerate(stream))[done:])
+    a, b = state_to_numpy(recovered.state), state_to_numpy(oracle.state)
+    for key in ("ratings", "norms", "sim_vals", "sim_idx", "n_active"):
+        np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    assert recovered.n_base == oracle.n_base

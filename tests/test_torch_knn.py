@@ -22,6 +22,8 @@ from repro_torch.bridge import (lists_match, ranked_match, state_from_numpy,
 from repro_torch.core import knn
 from tests.conftest import make_ratings
 
+torch.set_num_threads(2)
+
 TOL = 1e-6
 
 

@@ -21,6 +21,8 @@ from repro.kernels.knn_score.ref import knn_scores_ref as jref
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.knn_score.ops import knn_recommend_topn, knn_scores
 
+torch.set_num_threads(2)
+
 TOL = 1e-6
 
 

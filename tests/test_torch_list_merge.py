@@ -27,6 +27,8 @@ from repro_torch.kernels.list_merge.ops import merge_insert
 from repro_torch.kernels.list_merge.ref import merge_insert_ref
 from tests.conftest import make_ratings
 
+torch.set_num_threads(2)
+
 
 def _merge_case(rng, R, L, k):
     """Sorted rows with SENTINEL heads and -1 ids + duplicate-heavy inserts

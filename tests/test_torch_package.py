@@ -37,6 +37,8 @@ from repro_torch.kernels.verify_rows.kernel import verify_rows_cuda
 from repro_torch.serving import CFServer
 from tests.conftest import make_ratings
 
+torch.set_num_threads(2)
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]

@@ -22,6 +22,8 @@ from repro_torch.bridge import lists_match, state_from_numpy, state_to_numpy
 from repro_torch.core import rotation, twinsearch as ts
 from tests.conftest import make_ratings
 
+torch.set_num_threads(2)
+
 
 def _jstate_np(js) -> dict:
     return {k: np.asarray(getattr(js, k)) for k in

@@ -28,9 +28,11 @@ from repro.testing.faults import poison_state
 from repro.training.elastic import StragglerMonitor as JMonitor
 from repro_torch.bridge import lists_match, ranked_match, state_to_numpy
 from repro_torch.serving import (CFServer, LadderConfig, LEVEL_SHED,
-                                 ServerConfig, SnapshotConfig, WalConfig)
+                                 ServerConfig, SnapshotConfig)
 from repro_torch.training.elastic import StragglerMonitor
 from tests.conftest import make_ratings
+
+torch.set_num_threads(2)
 
 TOL = 1e-6
 COUNTERS = ("onboarded", "twin_hits", "fallbacks", "overflows", "rejected",
@@ -165,20 +167,38 @@ def test_malformed_payloads_are_refused(rng):
 
 
 @pytest.mark.parametrize("cfg", [
-    ServerConfig(wal=WalConfig(dir="wal")),
-    ServerConfig(snapshot=SnapshotConfig(dir="snap")),
     ServerConfig(replication=object()),
-    ServerConfig.from_kwargs(rotation_budget_rows=4),
 ])
 def test_unported_config_raises(rng, cfg):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         CFServer(make_ratings(rng, n=20, m=8), cfg, device="cpu")
 
 
-def test_unported_entry_points_raise(rng):
-    srv = CFServer(make_ratings(rng, n=20, m=8), device="cpu")
-    for call in (lambda: srv.add_rating(0, 1, 3.0),
-                 lambda: srv.step_maintenance(),
-                 lambda: CFServer.recover(np.zeros((2, 2)))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+def test_dropped_server_frees_its_arena_without_the_cycle_collector(
+        rng, tmp_path):
+    """A server holds GBs on the card: dropping the last reference must
+    free it at once, so the server may form no reference cycle (the
+    collector runs on object counts, not on device bytes)."""
+    import gc
+    import weakref
+    from repro_torch.serving import RotationConfig, WalConfig
+    from repro_torch.serving.guard import RetryPolicy
+    R = make_ratings(rng, n=30, m=12)
+    gc.disable()
+    try:
+        srv = CFServer(R, ServerConfig(
+            capacity_extra=6,
+            snapshot=SnapshotConfig(dir=str(tmp_path / "s"), every=3),
+            wal=WalConfig(dir=str(tmp_path / "w")),
+            rotation=RotationConfig(budget_rows=4),
+            ladder=LadderConfig(retry=RetryPolicy(sleep=lambda s: None))),
+            device="cpu")
+        for i in range(8):
+            assert srv.onboard_user(R[i]).ok
+        assert srv.add_rating(1, 2, 3.0)
+        refs = [weakref.ref(x) for x in (srv, srv.state.ratings,
+                                         srv._snapshot[0].sim_vals)]
+        del srv
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()

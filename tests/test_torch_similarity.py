@@ -27,6 +27,8 @@ from repro_torch.kernels import launch_counts
 from repro_torch.kernels.similarity.ops import cosine_similarity
 from tests.conftest import make_ratings
 
+torch.set_num_threads(2)
+
 SIM_TOL = 1e-6
 KERNEL_TOL = {np.float32: 1e-5, "bf16": 2e-2}
 

@@ -22,6 +22,8 @@ from repro.kernels.twin_probe.ref import twin_probe_ref as jref
 from repro_torch.kernels import launch_counts, twin_probe
 from tests.hypcompat import given, settings, st
 
+torch.set_num_threads(2)
+
 
 def _assert_parity(rows, s0, tol):
     before = launch_counts()["twin_probe"]

@@ -23,6 +23,8 @@ from repro_torch.core import set0_cap
 from repro_torch.core import twinsearch as ts
 from tests.conftest import make_ratings
 
+torch.set_num_threads(2)
+
 TOL = 1e-6
 
 

@@ -19,6 +19,8 @@ from repro.kernels import verify_rows as jverify_rows
 from repro.kernels.verify_rows.ref import verify_rows_ref as jref
 from repro_torch.kernels import launch_counts, verify_rows
 
+torch.set_num_threads(2)
+
 
 def _assert_parity(C, r0, valid):
     before = launch_counts()["verify_rows"]
@@ -84,3 +86,37 @@ def test_verify_rows_promotes_like_jnp():
     r0_off[9] += 0.5
     assert _assert_parity(C, r0, np.ones(20, bool))[4]
     assert not _assert_parity(C, r0_off, np.ones(20, bool)).any()
+
+
+@pytest.mark.parametrize("poison", ["none", "nan_list", "inf_rating",
+                                    "unsorted", "neg_norm", "dead_row_nan"])
+@pytest.mark.parametrize("n_active", [0, 9, 23, 30])
+def test_arena_healthy_sliced_matches_reference(monkeypatch, poison,
+                                                n_active):
+    """The port sweeps the arena in slices of live rows; the verdict equals
+    the reference's whole-arena ``arena_healthy`` for every slicing."""
+    from repro.kernels.verify_rows.ops import arena_healthy as jhealthy
+    from repro_torch.kernels.verify_rows import ops
+    rng = np.random.default_rng(3)
+    R = 24
+    sv = np.sort(rng.normal(size=(R, R)), axis=1).astype(np.float32)
+    rt = rng.integers(0, 6, (R, 7)).astype(np.float32)
+    nm = rng.random(R).astype(np.float32)
+    row = min(max(n_active - 1, 0), R - 1)
+    if poison == "nan_list":
+        sv[row, 3] = np.nan
+    elif poison == "inf_rating":
+        rt[row, 2] = np.inf
+    elif poison == "unsorted":
+        sv[row] = sv[row, ::-1]
+    elif poison == "neg_norm":
+        nm[row] = -1.0
+    elif poison == "dead_row_nan":
+        sv[R - 1], rt[R - 1] = np.nan, np.nan     # past n_active < R
+    want = bool(jhealthy(jnp.asarray(sv), jnp.asarray(rt), jnp.asarray(nm),
+                         jnp.int32(n_active)))
+    for chunk in (1, 5, 4096):
+        monkeypatch.setattr(ops, "HEALTH_CHUNK_ROWS", chunk)
+        got = ops.arena_healthy(torch.as_tensor(sv), torch.as_tensor(rt),
+                                torch.as_tensor(nm), n_active)
+        assert bool(got) == want, (poison, n_active, chunk)
