@@ -48,13 +48,36 @@ Phases, in order; the script exits non-zero as soon as a check fails:
                (checkpoint save/restore, WAL append and add_rating
                latencies, init_cache, plan steps, swap pause, recovery
                split) and the peak device memory.
-  7. movielens — the same request script at 943 x 1,682 on the card and on
+  7. replication — a ``CFServer`` at the same width with
+               ``ReplicationConfig(n_shards=4, r=2, rebuild_rows=4096)``
+               (two host copies of the arena: the phase first checks the
+               host's MemAvailable for them and one shard's slice, what a
+               later reset holds beside them): 12
+               onboards, then every similarity seam forbidden, node 1
+               killed (its replicas gone, its primary shard's rows NaN),
+               ``recommend_batch`` until the rows are healed and redundancy
+               is back to 2.  The healed arena must equal a clone taken
+               before the kill on all five leaves, the ladder must have gone
+               to ``degraded`` and back, and no seam may have been called.
+               Prints ``{"replication": {...}}``: reset, apply_rows per
+               onboard, repair, re-replication rate, the host RAM of the
+               replicas, the health check before each read batch.
+  8. buffered — ``onboard_batch_buffered(maintain=True)`` over a base
+               state of the phase-4 ratings (32,768 users): 16 rows copied
+               from base users, 8 fresh profiles and 8 repeats of them, 8
+               probes each; the merge of every base row runs on list_merge
+               (counts zeroed before, read after).  The flags against the
+               burst's construction, the 32 lists against the traditional
+               burst on the card (1e-6), and a 4,096-row slice of the
+               maintained lists against the plain merge on the CPU, bit for
+               bit.  Prints ``{"buffered": {...}}``.
+  9. movielens — the same request script at 943 x 1,682 on the card and on
                the CPU (the plain versions), held to the parity tests'
                tolerances.
-  8. summary — ``{"kernels": [...]}`` (all six kernels, each with the
-               launches of the phases that drove it: 4 and 6 for the main
-               path's three, 5 for the others), the nvidia-smi line, and
-               last ``{"ok": true, "device": {...}}``.
+ 10. summary — ``{"kernels": [...]}`` (all six kernels, each with the
+               launches of the phases that drove it: 4, 6, 7 and 8 for the
+               main path's three, 5 for the others), the nvidia-smi line,
+               and last ``{"ok": true, "device": {...}}``.
 
 It imports neither ``jax`` nor the JAX package, and refuses to run (exit 2)
 without a CUDA device or without ``src/repro_torch`` beside it.
@@ -90,6 +113,9 @@ BURST = 32
 # checkpoint every 32 onboards (one mid-run, before the plan starts); 32
 # add_ratings.
 DUR_BUDGET_ROWS, DUR_SNAPSHOT_EVERY, DUR_ADDS = 4096, 32, 32
+# Phase 7: 4 shards, 2 copies each, re-replication 4,096 rows a request; 12
+# onboards before node 1 dies.
+REP_SHARDS, REP_R, REP_REBUILD_ROWS, REP_ONBOARDS = 4, 2, 4096, 12
 MAIN_PATH = ("similarity", "list_merge", "knn_score")
 API_KERNELS = ("twin_probe", "verify_rows", "embedding_bag")
 # xDeepFM (configs/xdeepfm.py, configs/_fields.py::CRITEO39, taken as
@@ -1174,7 +1200,363 @@ def check_plan_merge(torch, dev, inp) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: MovieLens shape, card against CPU
+# Phase 7: replication at Douban width
+# ---------------------------------------------------------------------------
+
+def mem_available_bytes() -> int:
+    """The host's MemAvailable, from /proc/meminfo."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("MemAvailable not in /proc/meminfo")
+
+
+def timed(fn, out: list):
+    """``fn`` with each call's host milliseconds appended to ``out`` (for
+    calls that end in a copy to the host or a sync of their own)."""
+    def wrapped(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            out.append((time.perf_counter() - t0) * 1e3)
+    return wrapped
+
+
+def states_equal(torch, a, b) -> bool:
+    """Two states equal on all five leaves, compared on the card in slices
+    of 4,096 rows."""
+    if a.n_active != b.n_active:
+        return False
+    for x, y in zip(a[:4], b[:4]):
+        if x.shape != y.shape or not all(
+                torch.equal(x[r0:r0 + 4096], y[r0:r0 + 4096])
+                for r0 in range(0, x.shape[0], 4096)):
+            return False
+    return True
+
+
+def run_replication(torch, dev, R_host) -> dict:
+    """A replicated server at Douban width (4 shards, r = 2, re-replication
+    4,096 rows a tick): 12 onboards, then every similarity seam forbidden,
+    node 1 killed (its replicas gone, its primary shard's 8,208 rows NaN),
+    ``recommend_batch`` until the rows are healed and redundancy is back.
+    The healed arena must equal a clone taken before the kill."""
+    import numpy as np
+    from repro_torch.core import clone_state
+    from repro_torch.data.synthetic import plant_twins
+    from repro_torch.distributed import ReplicationConfig, shard_row_slice
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import (CFServer, LadderConfig, LEVEL_DEGRADED,
+                                     ServerConfig)
+    from repro_torch.testing import forbid_similarity_kernels, kill_replica
+    from repro_torch.training.elastic import StragglerMonitor
+
+    capacity = N_USERS + CAPACITY_EXTRA
+    row_bytes = (DOUBAN_ITEMS + 1 + 2 * capacity) * 4
+    arena_bytes = capacity * row_bytes
+    # ``reset`` copies one shard's slice off the card while the replicas'
+    # old copies are still held: REP_R copies plus the largest shard.
+    shard = shard_row_slice(capacity, REP_SHARDS, REP_SHARDS - 1)
+    need = REP_R * arena_bytes + (shard.stop - shard.start) * row_bytes
+    avail = mem_available_bytes()
+    check(avail > need, f"host MemAvailable {avail / 1e9:.1f} GB holds "
+          f"{REP_R} replica copies of the {arena_bytes / 1e9:.2f} GB arena "
+          f"plus one shard's slice ({need / 1e9:.1f} GB)")
+    rng = np.random.default_rng(SEED + 20)
+    heavy = np.flatnonzero((R_host != 0).sum(axis=1) >= 50)
+    stream = [R_host[int(u)].astype(np.float32)
+              for u in rng.choice(heavy, size=REP_ONBOARDS // 2,
+                                  replace=False)]
+    stream += [plant_twins(R_host, 1, seed=SEED + 700 + i)[0].astype(
+        np.float32) for i in range(REP_ONBOARDS - len(stream))]
+    stream = [stream[i] for i in rng.permutation(len(stream))]
+    users = rng.choice(N_USERS, size=KNN_B, replace=False).tolist()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    srv = CFServer(R_host, ServerConfig(
+        capacity_extra=CAPACITY_EXTRA, c_probes=C_PROBES,
+        replication=ReplicationConfig(n_shards=REP_SHARDS, r=REP_R,
+                                      rebuild_rows=REP_REBUILD_ROWS),
+        ladder=LadderConfig(monitor=StragglerMonitor(
+            window=64, straggler_ratio=50.0, hang_timeout_s=30.0,
+            consecutive_to_shrink=3))), device=dev)
+    build_s = time.perf_counter() - t0
+    reps = srv.replicas
+    host_gb = sum(a.nbytes for rep in reps._replicas.values()
+                  for a in rep.data.values()) / 1e9
+    apply_ms, repair_ms, rebuild_ms, pre_query_ms = [], [], [], []
+    reps.apply_rows = timed(reps.apply_rows, apply_ms)
+    results = [srv.onboard_user(r) for r in stream]
+    check(all(r.ok for r in results), f"{len(results)} onboards ok "
+          f"({sum(r.twin_found for r in results)} twin hits)")
+    reset_s = srv.stats.replica_reset_ms[0] / 1e3   # the construction's
+    before = srv.recommend_batch(users, n=10, k_neighbors=20)
+    good = clone_state(srv.state)
+
+    forbid_similarity_kernels(srv)
+    seams = ("_onboard", "_onboard_trad", "_init_cache", "_add",
+             "_refresh_cache")
+    called: list[str] = []
+
+    def tripwire(name, fn):
+        def wrapped(*args, **kwargs):
+            called.append(name)
+            return fn(*args, **kwargs)
+        return wrapped
+
+    for name in seams:
+        setattr(srv, name, tripwire(name, getattr(srv, name)))
+    reps.repair = timed(reps.repair, repair_ms)
+    reps.step_rebuild = timed(reps.step_rebuild, rebuild_ms)
+    rebuilt0 = reps.rebuilt_rows
+    lost = kill_replica(srv, 1)
+    levels, answers = [], []
+    while srv.stats.repairs == 0 or reps.degraded():
+        check_quiet(len(levels) < 64, "healed within 64 reads")
+        answers.append(srv.recommend_batch(users, n=10, k_neighbors=20))
+        levels.append(srv.level)
+    rebuilt = reps.rebuilt_rows - rebuilt0
+    counts = launch_counts()
+    srv._pre_query = timed(srv._pre_query, pre_query_ms)
+    read_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        srv.recommend_batch(users, n=10, k_neighbors=20)
+        read_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+
+    log(f"  built in {build_s:.1f} s (replicas {host_gb:.2f} GB on the "
+        f"host); killed node 1: {lost.size} primary rows poisoned; "
+        f"{len(levels)} reads until healed and redundant, levels {levels}")
+    check(states_equal(torch, srv.state, good),
+          "healed primary equal to the state before the kill on all five "
+          "leaves")
+    check(all(a == before for a in answers),
+          f"every read after the kill answered as before it ({KNN_B} users)")
+    check(srv.stats.repairs >= 1 and srv.stats.rollbacks == 0,
+          f"healed from replicas ({srv.stats.repairs} repair(s), "
+          f"{reps.repaired_rows} rows), no rollback")
+    check(LEVEL_DEGRADED in levels and srv.level < LEVEL_DEGRADED
+          and reps.redundancy() == REP_R,
+          f"ladder went to degraded and back down ({srv.level}); "
+          f"redundancy {reps.redundancy()}")
+    check(not called, f"no similarity seam called ({called})")
+    check(counts["similarity"] == 0 and counts["knn_score"] > 0,
+          f"launches in this phase: {counts}")
+    del good
+    srv_stats = srv.stats.summary()
+    # The timers hold bound methods: drop them, so that dropping the server
+    # checks the server's own references, not the smoke's.
+    del srv._pre_query, reps.apply_rows, reps.repair, reps.step_rebuild
+    del srv, reps
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    end_gb = torch.cuda.memory_allocated() / 1e9
+    check(end_gb < start_gb + 0.5, f"the dropped server released the card "
+          f"({end_gb:.2f} GB allocated)")
+
+    arena_gb = arena_bytes / 1e9
+    metrics = {
+        "shards": REP_SHARDS, "r": REP_R, "rebuild_rows": REP_REBUILD_ROWS,
+        "build_s": build_s, "replica_host_gb": host_gb,
+        "mem_available_gb": avail / 1e9,
+        "reset_s": reset_s, "reset_gb_s": arena_gb / reset_s,
+        "apply_rows_p50_ms": pct(apply_ms, 0.5),
+        "apply_rows_p99_ms": pct(apply_ms, 0.99),
+        "repair_ms": repair_ms, "repaired_rows": lost.size,
+        "rebuild_rows_per_s": rebuilt / (sum(rebuild_ms) / 1e3),
+        "rebuilt_rows": rebuilt, "rebuild_ticks_ms": rebuild_ms,
+        "pre_query_ms": pre_query_ms, "read_ms": read_ms,
+        "reads_to_heal": len(levels), "levels": levels,
+        "repairs": srv_stats["repairs"], "twin_hits": srv_stats["twin_hits"],
+        "peak_gb": peak / 1e9, "launches": counts}
+    log(f"  reset {reset_s:.2f} s ({metrics['reset_gb_s']:.2f} GB/s); "
+        f"apply_rows per onboard p50 {metrics['apply_rows_p50_ms']:.3f} ms "
+        f"p99 {metrics['apply_rows_p99_ms']:.3f} ms; repair "
+        f"{', '.join(f'{t:.1f}' for t in repair_ms)} ms for {lost.size} rows;"
+        f" re-replication {metrics['rebuild_rows_per_s']:.0f} rows/s "
+        f"({rebuilt} rows); health check before each read batch "
+        f"{', '.join(f'{t:.1f}' for t in pre_query_ms)} ms (reads "
+        f"{', '.join(f'{t:.1f}' for t in read_ms)} ms); peak "
+        f"{peak / 1e9:.2f} GB")
+    return metrics
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the buffered burst at Douban width
+# ---------------------------------------------------------------------------
+
+def buffered_burst(R_host):
+    """32 users: 16 rows copied from heavy base users, 8 fresh profiles and
+    8 repeats of them, each repeat after its original.  Returns the rows
+    and, per row, the base source or the burst index of the original."""
+    import numpy as np
+    from repro_torch.data.synthetic import plant_twins
+    rng = np.random.default_rng(SEED + 30)
+    heavy = np.flatnonzero((R_host != 0).sum(axis=1) >= 50)
+    base = rng.choice(heavy, size=16, replace=False)
+    items = [("base", int(u)) for u in base]
+    items += [("fresh", i) for i in range(8)]
+    keys = list(rng.random(len(items)))
+    for i in range(8):                       # a repeat follows its original
+        k0 = keys[16 + i]
+        items.append(("repeat", i))
+        keys.append(k0 + (1.0 - k0) * rng.random())
+    order = np.argsort(keys, kind="stable")
+    fresh = [plant_twins(R_host, 1, seed=SEED + 800 + i)[0] for i in range(8)]
+    rows, kinds, first = [], [], {}
+    for pos, j in enumerate(order):
+        kind, v = items[j]
+        rows.append(R_host[v] if kind == "base" else fresh[v])
+        if kind == "fresh":
+            first[v] = pos
+        kinds.append((kind, v if kind == "base" else first.get(v)))
+    return np.stack(rows).astype(np.float32), kinds
+
+
+def run_buffered(torch, dev, R_host, trad_burst_ms: float) -> dict:
+    """``onboard_batch_buffered(maintain=True)`` over the phase-4 ratings'
+    base state (32,768 users, capacity 32,768): the flags against the
+    burst's construction, the 32 lists against the traditional burst on
+    the card, and a 4,096-row slice of the maintained base lists against
+    the plain merge on the CPU, bit for bit."""
+    import numpy as np
+    from repro_torch.bridge import lists_match
+    from repro_torch.core import (CFState, build_state,
+                                  onboard_batch_buffered,
+                                  onboard_batch_traditional, set0_cap)
+    from repro_torch.core.knn import SORT_CHUNK_ROWS
+    from repro_torch.core.maintenance import merge_new_users_into_base
+    from repro_torch.core.rotation import unsorted_rows
+    from repro_torch.core.twinsearch import make_probes
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    base = build_state(torch.as_tensor(R_host).to(dev), capacity_extra=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    N = base.capacity
+    burst, kinds = buffered_burst(R_host)
+    k = burst.shape[0]
+    probes = make_probes(torch.Generator().manual_seed(SEED + 31), k,
+                         C_PROBES, N)
+    R_new = torch.as_tensor(burst, device=dev)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    vals, idx, stats, (mv, mi) = onboard_batch_buffered(
+        base, R_new, probes, s_max=set0_cap(N), maintain=True)
+    torch.cuda.synchronize()
+    burst_ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    found = stats.found.cpu().numpy()
+    twin = stats.twin_idx.cpu().numpy()
+    expect = np.array([kind != "fresh" for kind, _ in kinds])
+    check(np.array_equal(found, expect),
+          f"flags match the burst: {int(found.sum())} twins found "
+          f"(16 base copies, 8 repeats), {int((~found).sum())} fresh")
+    check(all(twin[t] == N + v if kind == "repeat"
+              else np.array_equal(R_host[twin[t]], burst[t])
+              for t, (kind, v) in enumerate(kinds) if kind != "fresh"),
+          "base twins verify against their rows, repeats name the first "
+          "earlier copy (N_base + position)")
+    check(counts["list_merge"] > 0, f"kernel list_merge launched "
+          f"{counts['list_merge']} times in the buffered burst ({counts})")
+
+    # The merge alone, on the inputs the path gave it (the write buffer's
+    # base columns, recovered from the sorted rows): timed, and equal to
+    # the path's output.
+    U = unsorted_rows(vals, idx, slice(0, k))[:, :N]
+    ids = N + torch.arange(k, device=dev)
+    merge_ms = cuda_ms(lambda: merge_new_users_into_base(
+        base.sim_vals, base.sim_idx, U, ids), reps=3)
+    again = merge_new_users_into_base(base.sim_vals, base.sim_idx, U, ids)
+    check(torch.equal(again[0], mv) and torch.equal(again[1], mi),
+          "the merge on the recovered buffer equals the path's output")
+    del again
+    once = all(bool(((mi == N + t).sum(dim=1) == 1).all()) for t in range(k))
+    check(once and mv.shape == (N, N + k), f"each new user once in every "
+          f"maintained base row ({tuple(mv.shape)})")
+    rows = slice(0, SORT_CHUNK_ROWS)
+    t0 = time.perf_counter()
+    pv, pi = merge_new_users_into_base(base.sim_vals[rows].cpu(),
+                                       base.sim_idx[rows].cpu(),
+                                       U[:, rows].cpu(), ids.cpu())
+    plain_s = time.perf_counter() - t0
+    check(torch.equal(mv[rows].cpu(), pv) and torch.equal(mi[rows].cpu(), pi),
+          f"maintained base rows 0-{SORT_CHUNK_ROWS - 1} bit-identical to the "
+          f"plain merge on the CPU ({plain_s:.1f} s)")
+    del mv, mi, pv, pi
+    # A base twin's row is its twin's stored list (the twin path is data
+    # movement), bit for bit.
+    copies = [t for t, (kind, _) in enumerate(kinds) if kind == "base"]
+    computed = [t for t, (kind, _) in enumerate(kinds) if kind != "base"]
+    stored = unsorted_rows(base.sim_vals, base.sim_idx,
+                           stats.twin_idx[copies])
+    check(torch.equal(U[copies], stored), f"the {len(copies)} base twins' "
+          "rows equal their twins' stored lists, bit for bit")
+    del U, stored
+
+    # The traditional burst of the same users on the card: an arena of
+    # capacity N + k over the same ratings.  Its products are
+    # multiply-then-divide, as the buffered path's for fresh users and
+    # repeats; a twin's copied list comes from the build, which normalises
+    # first, so those rows are held to the copy above instead.
+    trad = CFState(torch.cat([base.ratings, torch.zeros(
+        (k, base.n_items), device=dev)]), torch.cat([base.norms, torch.zeros(
+            k, device=dev)]), torch.empty((N + k, N + k), device=dev),
+        torch.empty((N + k, N + k), dtype=torch.int32, device=dev), N)
+    del base
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trad = onboard_batch_traditional(trad, R_new)
+    torch.cuda.synchronize()
+    trad_ms = (time.perf_counter() - t0) * 1e3
+    tv, ti = trad.sim_vals[N:], trad.sim_idx[N:]
+    why = lists_match(tv[computed].cpu().numpy(), ti[computed].cpu().numpy(),
+                      vals[computed].cpu().numpy(),
+                      idx[computed].cpu().numpy(), 1e-6)
+    check(why is None, f"the {len(computed)} fresh and repeated users' lists "
+          f"equal the traditional burst's within 1e-6, ids except near ties "
+          f"({why})")
+    dense_t = unsorted_rows(tv, ti, slice(0, k))[copies]
+    dense_b = unsorted_rows(vals, idx, slice(0, k))[copies]
+    burst_err = float((dense_t[:, N:] - dense_b[:, N:]).abs().max())
+    copy_err = float((dense_t[:, :N] - dense_b[:, :N]).abs().max())
+    check(burst_err <= 1e-6, f"the base twins' entries for the burst's "
+          f"users within 1e-6 of the traditional burst's ({burst_err:.3g})")
+    log(f"  the base twins' copied lists against the traditional burst's own "
+        f"products: max diff {copy_err:.3g} (the build normalises first)")
+    del trad, tv, ti, dense_t, dense_b
+    torch.cuda.empty_cache()
+    metrics = {"k": k, "n_base": N, "c": C_PROBES, "build_s": build_s,
+               "burst_ms": burst_ms, "merge_ms": merge_ms,
+               "merge_shape": [N, N + k, k], "plain_slice_cpu_s": plain_s,
+               "traditional_burst_ms": trad_ms,
+               "phase4_traditional_burst_ms": trad_burst_ms,
+               "peak_gb": peak / 1e9, "launches": counts,
+               "twins": int(found.sum()), "twin_copy_vs_traditional_max_diff":
+               copy_err, "burst_entries_max_diff": burst_err}
+    log(f"  base built in {build_s:.1f} s; buffered burst of {k} "
+        f"(maintain=True) {burst_ms:.1f} ms, of which the merge "
+        f"({N} x {N + k}, {counts['list_merge']} launches) {merge_ms:.2f} ms;"
+        f" traditional burst of the same users {trad_ms:.1f} ms (phase 4: "
+        f"{trad_burst_ms:.1f} ms); peak {peak / 1e9:.2f} GB")
+    return metrics
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: MovieLens shape, card against CPU
 # ---------------------------------------------------------------------------
 
 def movielens_script(torch, device: str):
@@ -1318,15 +1700,23 @@ def main() -> int:
         durability = run_durability(torch, dev, R_host, server["rotation_ms"])
         torch.cuda.empty_cache()
 
-        log("== 7. MovieLens shape, card against CPU")
+        log("== 7. replication at Douban width")
+        replication = run_replication(torch, dev, R_host)
+        torch.cuda.empty_cache()
+
+        log("== 8. buffered burst at Douban width")
+        buffered = run_buffered(torch, dev, R_host, server["burst_ms"])
+        torch.cuda.empty_cache()
+
+        log("== 9. MovieLens shape, card against CPU")
         run_movielens(torch)
 
-        log("== 8. summary")
+        log("== 10. summary")
+        main_phases = (server, durability, replication, buffered)
         kernels = []
         for kname in MAIN_PATH + API_KERNELS:
             e = dict(entries[kname])
-            e["launches"] = (server["launches"][kname]
-                             + durability["launches"][kname]
+            e["launches"] = (sum(ph["launches"][kname] for ph in main_phases)
                              if kname in MAIN_PATH else api_launches[kname])
             if kname == "list_merge":
                 e["plan_merge"] = durability["plan_merge"]
@@ -1335,6 +1725,8 @@ def main() -> int:
         log(f"  total {total_s:.1f} s")
         print(json.dumps({"server": server, "total_s": total_s}))
         print(json.dumps({"durability": durability}))
+        print(json.dumps({"replication": replication}))
+        print(json.dumps({"buffered": buffered}))
         print(json.dumps({"kernels": kernels}))
         print(nvidia_smi_line())
         print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,8 @@ from repro_torch.core.baseline import (build_list, append_user,
                                        onboard_traditional,
                                        onboard_batch_traditional)
 from repro_torch.core.twinsearch import (twinsearch_find, onboard_twinsearch,
-                                         onboard_batch, make_probes,
+                                         onboard_batch,
+                                         onboard_batch_buffered, make_probes,
                                          probe_sims, candidate_mask,
                                          verify_candidates)
 from repro_torch.core.maintenance import (insert_into_lists,
@@ -36,7 +37,8 @@ __all__ = [
     "predict_from_neighbors", "predict_batch", "recommend",
     "recommend_from_neighbors", "recommend_batch", "build_list",
     "append_user", "onboard_traditional", "onboard_batch_traditional",
-    "twinsearch_find", "onboard_twinsearch", "onboard_batch", "make_probes",
+    "twinsearch_find", "onboard_twinsearch", "onboard_batch",
+    "onboard_batch_buffered", "make_probes",
     "probe_sims", "candidate_mask", "verify_candidates",
     "insert_into_lists", "insert_batch_into_lists",
     "merge_new_users_into_base", "splice_twin", "splice_twins",

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.knn import SORT_CHUNK_ROWS
 from repro_torch.core.types import CFState, SENTINEL, as_index
 from repro_torch.kernels.list_merge.ops import merge_insert
 
@@ -86,6 +87,19 @@ def splice_twin(state: CFState, new_user: int, twin: int) -> CFState:
     return insert_into_lists(state, new_user, sims)
 
 
+def _head_merge(vals: torch.Tensor, idx: torch.Tensor,
+                sims_block: torch.Tensor, ids: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the base merge over the given rows."""
+    n, k = vals.shape[0], sims_block.shape[0]
+    dev = vals.device
+    vals = torch.cat([torch.full((n, k), SENTINEL, dtype=vals.dtype,
+                                 device=dev), vals], dim=1)
+    idx = torch.cat([torch.full((n, k), -1, dtype=torch.int32, device=dev),
+                     idx.to(torch.int32)], dim=1)
+    return merge_insert(vals, idx, sims_block.T, ids)
+
+
 def merge_new_users_into_base(base_vals: torch.Tensor, base_idx: torch.Tensor,
                               sims_block: torch.Tensor,
                               new_user_ids: torch.Tensor
@@ -96,13 +110,21 @@ def merge_new_users_into_base(base_vals: torch.Tensor, base_idx: torch.Tensor,
     one entry per new user, without writing the base state.
 
     ``sims_block``: (k, Nb), sims_block[t, x] = sim(u_t, base row x);
-    ``new_user_ids``: (k,) ids the merged entries carry."""
-    Nb = base_vals.shape[0]
+    ``new_user_ids``: (k,) ids the merged entries carry.  More than
+    ``SORT_CHUNK_ROWS`` rows merge that many rows per launch into one
+    preallocated output: the merge is row-local, so the result is the same
+    bit for bit, and the concatenated input holds one chunk (a whole
+    Douban-width burst's would be about 8.6 GB beside the output)."""
+    Nb, L = base_vals.shape
     k = sims_block.shape[0]
     dev = base_vals.device
-    vals = torch.cat([torch.full((Nb, k), SENTINEL, dtype=base_vals.dtype,
-                                 device=dev), base_vals], dim=1)
-    idx = torch.cat([torch.full((Nb, k), -1, dtype=torch.int32, device=dev),
-                     base_idx.to(torch.int32)], dim=1)
-    return merge_insert(vals, idx, sims_block.T,
-                        as_index(new_user_ids, dev).to(torch.int32))
+    ids = as_index(new_user_ids, dev).to(torch.int32)
+    if Nb <= SORT_CHUNK_ROWS:
+        return _head_merge(base_vals, base_idx, sims_block, ids)
+    out_v = torch.empty((Nb, L + k), dtype=base_vals.dtype, device=dev)
+    out_i = torch.empty((Nb, L + k), dtype=torch.int32, device=dev)
+    for r0 in range(0, Nb, SORT_CHUNK_ROWS):
+        sl = slice(r0, r0 + SORT_CHUNK_ROWS)
+        out_v[sl], out_i[sl] = _head_merge(base_vals[sl], base_idx[sl],
+                                           sims_block[:, sl], ids)
+    return out_v, out_i

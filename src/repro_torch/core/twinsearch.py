@@ -15,6 +15,11 @@ the twin's similarity list instead of recomputing it:
 The onboarding block (rows appended after ``n_base``) is always verified,
 so a burst of identical new users twins each other.
 
+``onboard_batch_buffered`` is the other onboarding path: the burst lands
+in a (k, N_base + k) write buffer over a read-only base state, and with
+``maintain=True`` every base row's list gains the whole burst in one k-way
+merge-insert on the ``list_merge`` kernel.
+
 Probes come from a CPU ``torch.Generator`` (``make_probes``), so the card
 and the CPU draw the same ones.  Tests that hold the port against the JAX
 reference pass the JAX probes in instead.
@@ -24,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import baseline
+from repro_torch.core.maintenance import merge_new_users_into_base
 from repro_torch.core.similarity import cosine_vs_all
 from repro_torch.core.types import (CFState, OnboardStats, SENTINEL,
                                     TwinResult, active_mask, as_index,
@@ -169,3 +175,78 @@ def make_probes(gen: torch.Generator, k: int, c: int, n_base: int
     """(k, c) random probe indices over the base population (line 1), from
     a CPU generator so every device draws the same probes."""
     return torch.randint(0, n_base, (k, c), generator=gen)
+
+
+def onboard_batch_buffered(state: CFState, R_new: torch.Tensor, probe_idx,
+                           *, s_max: int, tol: float = 1e-6,
+                           maintain: bool = False):
+    """An onboarding burst over an **immutable** base state.
+
+    The base state (ratings, sorted lists) is only read; the burst's rows
+    accumulate **unsorted** in a (k, N_base + k) buffer, all SENTINEL at
+    first (entry N_base + s is burst user s, filled for s < t);
+    burst-internal twins verify directly against ``R_new``, the first
+    earlier twin winning; a twin's id is ``N_base + s``; all k rows sort
+    once, stably, at the end.
+
+    Returns (vals (k, N_tot) ascending, idx (k, N_tot) int32, stats); with
+    ``maintain=True`` a fourth element (base_vals, base_idx): every base
+    row's list re-sorted to width N_tot with all k new users merged in by
+    one k-way merge-insert (the ``list_merge`` kernel), fed from the write
+    buffer's base columns at zero extra similarity compute.
+
+    The reference's ``unroll``, ``rows_spec`` and ``use_pallas`` arguments
+    are dropped: eager PyTorch has no scan to unroll or sharding to name,
+    and the merge runs the kernel on the card and its plain version on
+    the CPU."""
+    N_base = state.capacity
+    dev = state.device
+    R_new = R_new.to(dev)
+    probe_idx = as_index(probe_idx, dev)
+    k = R_new.shape[0]
+    N_tot = N_base + k
+    Rn = R_new.float()
+    new_norms = torch.sqrt(torch.sum(torch.square(Rn), dim=1))
+    karange = torch.arange(k, device=dev)
+
+    buf = torch.full((k, N_tot), SENTINEL, dtype=torch.float32, device=dev)
+    outs = []
+    for j in range(k):
+        r0 = R_new[j]
+        sims0 = probe_sims(state, r0, probe_idx[j])
+        cand = candidate_mask(state, probe_idx[j], sims0, tol)
+        found_b, twin_b, n_cand, ovf = verify_candidates(
+            state, r0, cand, s_max, 0, 0)
+
+        # Burst-internal twins: verify against R_new directly.
+        live = karange < j
+        eq_new = torch.all(R_new == r0[None, :], dim=1) & live
+        found_n = torch.any(eq_new)
+        twin_n = torch.argmax(eq_new.to(torch.uint8))
+
+        # Block sims are needed on every path (the copied row must carry
+        # entries for previously-added burst users) — O(k·m).
+        bsims = cosine_vs_all(Rn, new_norms, r0.float())
+        buf[j, N_base:] = torch.where(live, bsims, SENTINEL)
+        if bool(found_b):
+            u = torch.full((N_base,), SENTINEL, dtype=torch.float32,
+                           device=dev)
+            u[state.sim_idx[twin_b].long()] = state.sim_vals[twin_b].float()
+            buf[j, :N_base] = u
+        elif bool(found_n):
+            buf[j, :N_base] = buf[twin_n, :N_base]
+        else:
+            buf[j, :N_base] = cosine_vs_all(state.ratings, state.norms, r0)
+        outs.append((found_b | found_n,
+                     torch.where(found_b, twin_b, N_base + twin_n),
+                     n_cand, ovf))
+
+    vals, idx = argsort_rows(buf)
+    found, twin, ncand, ovf = (torch.stack(x) for x in zip(*outs))
+    stats = OnboardStats(found=found, twin_idx=twin, n_candidates=ncand,
+                         overflowed=ovf)
+    if not maintain:
+        return vals, idx.to(torch.int32), stats
+    maintained = merge_new_users_into_base(
+        state.sim_vals, state.sim_idx, buf[:, :N_base], N_base + karange)
+    return vals, idx.to(torch.int32), stats, maintained

@@ -6,7 +6,8 @@ the plain version (``ref.py``) on CPU tensors.  The JAX wrapper's TPU
 tiling and interpret arguments (``bs``, ``bk``, ``interpret``) are dropped:
 the kernel strides over any row width, so nothing is padded.
 ``rows_sorted_finite`` and ``arena_healthy`` are plain PyTorch, as they are
-plain jnp in the JAX package.
+plain jnp in the JAX package; ``live_rows_ok`` is the per-row rule that
+``arena_healthy`` reduces and the replicas' ``bad_rows`` lists.
 """
 from __future__ import annotations
 
@@ -51,20 +52,26 @@ def rows_sorted_finite(vals: torch.Tensor, n_active: int) -> torch.Tensor:
 HEALTH_CHUNK_ROWS = 4096
 
 
-def arena_healthy(sim_vals: torch.Tensor, ratings: torch.Tensor,
-                  norms: torch.Tensor, n_active: int) -> torch.Tensor:
-    """() bool — live similarity lists sorted ascending with no non-finite
-    values, live rating rows and norms finite, ``n_active`` within
-    capacity.  Swept in slices of ``HEALTH_CHUNK_ROWS`` live rows (rows
-    past ``n_active`` pass by definition), with no sync between slices."""
-    R = ratings.shape[0]
-    n_live = min(max(n_active, 0), R)
-    ok = torch.ones((), dtype=torch.bool, device=ratings.device)
+def live_rows_ok(sim_vals: torch.Tensor, ratings: torch.Tensor,
+                 norms: torch.Tensor, n_active: int) -> torch.Tensor:
+    """(n_live,) bool per live row (``n_active`` clamped to the capacity):
+    similarity list finite and ascending, ratings finite, norm finite and
+    non-negative.  Swept in slices of ``HEALTH_CHUNK_ROWS`` rows, with no
+    sync between slices."""
+    n_live = min(max(n_active, 0), ratings.shape[0])
+    norms = norms[:n_live]
+    ok = torch.isfinite(norms) & (norms >= 0)
     for r0 in range(0, n_live, HEALTH_CHUNK_ROWS):
         r1 = min(n_live, r0 + HEALTH_CHUNK_ROWS)
-        ok &= torch.all(rows_sorted_finite(sim_vals[r0:r1], r1 - r0))
-        ok &= torch.all(torch.isfinite(ratings[r0:r1]))
-    live = torch.arange(R, device=ratings.device) < n_active
-    norms_ok = torch.all((torch.isfinite(norms) & (norms >= 0)) | ~live)
-    n_ok = 0 <= n_active <= R
-    return ok & norms_ok & n_ok
+        ok[r0:r1] &= rows_sorted_finite(sim_vals[r0:r1], r1 - r0)
+        ok[r0:r1] &= torch.all(torch.isfinite(ratings[r0:r1]), dim=1)
+    return ok
+
+
+def arena_healthy(sim_vals: torch.Tensor, ratings: torch.Tensor,
+                  norms: torch.Tensor, n_active: int) -> torch.Tensor:
+    """() bool — every live row passes ``live_rows_ok`` (rows past
+    ``n_active`` pass by definition) and ``n_active`` lies within
+    capacity."""
+    n_ok = 0 <= n_active <= ratings.shape[0]
+    return torch.all(live_rows_ok(sim_vals, ratings, norms, n_active)) & n_ok

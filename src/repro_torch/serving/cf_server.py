@@ -28,12 +28,22 @@ Resilience contract, as in the reference: no public entry point raises to
 the caller.  Malformed payloads are refused by ``serving/guard.py`` and
 quarantined; a full arena triggers an **arena rotation**
 (``core/rotation.py``); onboard latencies drive the degradation ladder
-twinsearch -> traditional -> shed through a ``StragglerMonitor``; the
-onboard call runs under retry with backoff (a call that still fails is
-quarantined and its WAL record aborted); an in-memory snapshot plus the
+twinsearch -> traditional -> shed through a ``StragglerMonitor``, and the
+``degraded`` rung (the traditional path) is entered when replica
+redundancy drops and held until re-replication restores it; the onboard
+call runs under retry with backoff (a call that still fails is quarantined
+and its WAL record aborted); an in-memory snapshot plus the
 ``arena_healthy`` check every ``check_every`` onboards rolls a poisoned
 arena back.  Reads are never refused: an invalid row is quarantined and
 answers empty/0.0, and the shed rung serves reads at ``k // 4``.
+
+With ``replication=ReplicationConfig(...)`` the arena's row shards are
+mirrored r-way on the host (``distributed/replication.py``).  A poisoned
+primary row (a bit-flip, a lost shard) is healed from a surviving replica
+before any rollback — pure data movement — and checked for before every
+read batch; a lost replica is rebuilt from survivors a budget of rows per
+request.  Rollback to the last good snapshot remains the backstop when no
+replica survives.
 
 With ``RotationConfig.budget_rows > 0`` rotation is *incremental*: a
 ``RotationPlan`` starts when free write slots fall to ``reserve_slots`` and
@@ -80,9 +90,14 @@ Differences from the reference:
   * ``ServerStats`` also times the write path: WAL appends, whole
     ``add_rating`` calls (which return once the update is on the arena),
     dots-cache builds, maintenance-tick plan steps, durable checkpoint
-    saves, and ``recover``'s restore and replay.
-  * Not ported yet: ``replication`` (raises ``NotImplementedError`` naming
-    its ROADMAP item), so the degraded-replica rung never engages.
+    saves, ``recover``'s restore and replay, and full replica resets.
+  * A replica repair writes the bad rows back in place, after checking
+    that every one of them has a surviving replica; the reference copies
+    the whole arena through the host and builds a new state.
+  * The callables that compute similarities are instance attributes
+    (``_onboard_trad``, ``_init_cache``, ``_add`` and ``_refresh_cache``,
+    beside the ``_onboard`` method), so the fault harness can forbid them
+    (``testing.faults.forbid_similarity_kernels``).
 """
 from __future__ import annotations
 
@@ -105,6 +120,7 @@ from repro_torch.core.rotation import (RotationPlan, rotate_arena,
                                        rotate_arena_frozen)
 from repro_torch.core.types import (CFState, clone_state, require_device,
                                     set0_cap)
+from repro_torch.distributed.replication import ReplicatedArena
 from repro_torch.kernels.knn_score.ops import knn_recommend_topn
 from repro_torch.kernels.verify_rows.ops import arena_healthy
 from repro_torch.serving import guard
@@ -119,7 +135,7 @@ log = logging.getLogger(__name__)
 # Degradation ladder levels (ascending = more degraded).
 LEVEL_TWINSEARCH = 0
 LEVEL_TRADITIONAL = 1
-LEVEL_DEGRADED = 2          # replica redundancy lost (replication not ported)
+LEVEL_DEGRADED = 2          # replica redundancy lost; rebuilding in background
 LEVEL_SHED = 3
 LEVEL_NAMES = {LEVEL_TWINSEARCH: "twinsearch",
                LEVEL_TRADITIONAL: "traditional",
@@ -147,6 +163,7 @@ class ServerStats:
     rotations: int = 0
     snapshots: int = 0
     rollbacks: int = 0
+    repairs: int = 0            # poisoned rows healed from replicas
     degradations: int = 0
     recoveries: int = 0
     wal_appends: int = 0
@@ -170,6 +187,7 @@ class ServerStats:
     cache_init_ms: deque = field(init=False)
     plan_step_ms: deque = field(init=False)
     snapshot_save_ms: deque = field(init=False)
+    replica_reset_ms: deque = field(init=False)
 
     def __post_init__(self) -> None:
         # Fixed-size ring buffers: sustained traffic must not grow host
@@ -190,6 +208,9 @@ class ServerStats:
         self.cache_init_ms = deque(maxlen=64)
         self.plan_step_ms = deque(maxlen=self.latency_window)
         self.snapshot_save_ms = deque(maxlen=64)
+        # Replication: a full rebuild of every live replica from the arena
+        # (construction, and after each rotation, swap or rollback).
+        self.replica_reset_ms = deque(maxlen=64)
 
     def summary(self) -> dict:
         ms = sorted(self.onboard_ms) or [0.0]
@@ -210,6 +231,7 @@ class ServerStats:
             "rotations": self.rotations,
             "snapshots": self.snapshots,
             "rollbacks": self.rollbacks,
+            "repairs": self.repairs,
             "degradations": self.degradations,
             "recoveries": self.recoveries,
             "wal_appends": self.wal_appends,
@@ -237,6 +259,7 @@ class ServerStats:
             "plan_step_p50_ms": step[len(step) // 2],
             "plan_step_max_ms": step[-1],
             "snapshot_save_max_ms": max(self.snapshot_save_ms, default=0.0),
+            "replica_reset_max_ms": max(self.replica_reset_ms, default=0.0),
             "recover_restore_ms": self.recover_restore_ms,
             "recover_replay_ms": self.recover_replay_ms,
         }
@@ -271,10 +294,6 @@ class CFServer:
         is present: the server never slides onto the CPU by itself.
         ``recover=True`` is ``CFServer.recover``."""
         config = config if config is not None else ServerConfig()
-        if config.replication is not None:
-            raise NotImplementedError(
-                "replication is not ported to repro_torch yet (ROADMAP.md "
-                "Queue 1, item 6)")
         self.device = require_device(device, "CFServer")
         self.config = config
         self._rcfg = config.rotation
@@ -323,6 +342,14 @@ class CFServer:
                     if config.wal.dir is not None else None)
         self._replaying = False
         self._crash_hook = None        # test seam: see testing/faults.py
+        self.replicas: ReplicatedArena | None = None
+        # Every callable that computes similarities, besides the ``_onboard``
+        # method: plain functions (a bound method would make the server a
+        # reference cycle), replaced by ``forbid_similarity_kernels``.
+        self._onboard_trad = base_lib.onboard_traditional
+        self._init_cache = upd_lib.init_cache
+        self._add = upd_lib.add_rating
+        self._refresh_cache = upd_lib.refresh_rows
         self._cache: upd_lib.SimCache | None = None   # computed lazily
         # Rows the cache covers.  Onboarding appends rows without touching
         # the cache; the reference then divides by their cached squared
@@ -345,6 +372,13 @@ class CFServer:
             self._replay_wal(restored, fell_back)
             self._sync()
             self.stats.recover_replay_ms = (time.perf_counter() - t0) * 1e3
+
+        if config.replication is not None:
+            self._sync()            # the build's work is not the reset's
+            t0 = time.perf_counter()
+            self.replicas = ReplicatedArena(self.state, config.replication)
+            self.stats.replica_reset_ms.append(
+                (time.perf_counter() - t0) * 1e3)
 
         self._snapshot = None
         self._take_snapshot()       # the construction-time good state
@@ -397,6 +431,9 @@ class CFServer:
 
     # -- degradation ladder -------------------------------------------------
 
+    def _replicas_degraded(self) -> bool:
+        return self.replicas is not None and self.replicas.degraded()
+
     def _set_level(self, level: int) -> None:
         if level == self.level:
             return
@@ -414,8 +451,16 @@ class CFServer:
             self._shed_until = self._clock() + self.shed_cooldown_s
 
     def _step_down(self) -> None:
+        """One recovery step down the ladder.  The ``degraded`` rung is
+        owned by replication: stepping out of SHED lands on it while
+        redundancy is still lost, and the rung itself is pinned until
+        re-replication completes (``_replication_tick`` releases it)."""
         if self.level == LEVEL_SHED:
-            self._set_level(LEVEL_TRADITIONAL)
+            self._set_level(LEVEL_DEGRADED if self._replicas_degraded()
+                            else LEVEL_TRADITIONAL)
+        elif self.level == LEVEL_DEGRADED:
+            if not self._replicas_degraded():
+                self._set_level(LEVEL_TRADITIONAL)
         else:
             self._set_level(max(LEVEL_TWINSEARCH, self.level - 1))
 
@@ -424,6 +469,8 @@ class CFServer:
             # A hang-scale latency: shed immediately, don't walk the ladder.
             self._set_level(LEVEL_SHED)
         elif action is Action.CHECKPOINT_AND_SHRINK:
+            # Latency verdicts walk twinsearch -> traditional -> shed; the
+            # degraded rung is entered only by replica-loss events.
             self._set_level(LEVEL_TRADITIONAL
                             if self.level == LEVEL_TWINSEARCH
                             else LEVEL_SHED)
@@ -433,12 +480,36 @@ class CFServer:
                     and self._healthy_streak >= self.recover_after):
                 self._step_down()
 
+    def _replication_tick(self) -> None:
+        """Per-request background replication work: advance re-replication
+        by the configured row budget and keep the ladder's ``degraded``
+        rung in sync with actual redundancy."""
+        if self.replicas is None:
+            return
+        self.replicas.step_rebuild()
+        if self.replicas.degraded():
+            if self.level < LEVEL_DEGRADED:
+                self._set_level(LEVEL_DEGRADED)
+        elif self.level == LEVEL_DEGRADED:
+            self._set_level(LEVEL_TRADITIONAL)
+
+    def _reset_replicas(self) -> None:
+        """Re-mirror every live replica from the arena after a geometry
+        change (rotation, swap, rollback), timed into
+        ``stats.replica_reset_ms``."""
+        if self.replicas is None:
+            return
+        self._sync()
+        t0 = time.perf_counter()
+        self.replicas.reset(self.state)
+        self.stats.replica_reset_ms.append((time.perf_counter() - t0) * 1e3)
+
     # -- rotation -----------------------------------------------------------
 
     def _rotate(self) -> None:
         """Grow the arena: compact the write region into a new base (see
         ``core/rotation.py``).  The update cache keys on the old shapes
-        and is dropped."""
+        and is dropped; replicas re-mirror the new geometry."""
         old_capacity = self.state.capacity
         self._cache = None
         t0 = time.perf_counter()
@@ -453,6 +524,7 @@ class CFServer:
         self.stats.rotation_ms.append(dt_ms)
         # Synchronous rotation: the triggering request stalls for all of it.
         self.stats.rotation_pause_ms.append(dt_ms)
+        self._reset_replicas()
         log.info("arena rotated: capacity %d -> %d (n_base=%d, %.1fms)",
                  old_capacity, self.state.capacity, self.n_base, dt_ms)
 
@@ -549,6 +621,7 @@ class CFServer:
         self.n_base = int(n_base)
         self._cache = None
         self._retarget()
+        self._reset_replicas()
 
     def step_maintenance(self, budget_rows: int | None = None) -> dict:
         """Public maintenance tick: drain up to ``budget_rows`` rows of any
@@ -614,6 +687,7 @@ class CFServer:
         self._retarget()
         if self.wal is not None:
             self.wal.truncate_after(seq)
+        self._reset_replicas()
         self.stats.rollbacks += 1
         self._since_check = 0
         self._since_snapshot = 0
@@ -728,7 +802,7 @@ class CFServer:
             new_state, res = self._onboard(self.state, r0, probes)
             found, overflowed = bool(res.found), bool(res.overflowed)
         else:
-            new_state = base_lib.onboard_traditional(self.state, r0)
+            new_state = self._onboard_trad(self.state, r0)
             found = overflowed = False
         self._sync()
         self._commit_onboard(new_state, found, overflowed)
@@ -740,15 +814,34 @@ class CFServer:
         return bool(arena_healthy(st.sim_vals, st.ratings, st.norms,
                                   st.n_active))
 
+    def _state_ok(self) -> bool:
+        """Verify the arena invariant; heal poisoned rows from replicas
+        (exact, similarity-free) when possible, roll back to the last good
+        snapshot otherwise.  False iff a rollback happened."""
+        if self._healthy():
+            return True
+        if self.replicas is not None:
+            fixed, rows = self.replicas.repair(self.state)
+            if fixed is not None and self._healthy():
+                self._cache = None
+                self.stats.repairs += 1
+                log.warning("healed %d poisoned arena rows from replicas",
+                            len(rows))
+                return True
+        self._rollback()
+        return False
+
     def _check_and_snapshot(self) -> bool:
         """Periodic poison detection + snapshot cadence.  Returns False if
-        the state failed the invariant and was rolled back."""
+        the state failed the invariant and was rolled back (a
+        replica-healed state counts as healthy)."""
         self._since_check += 1
         self._since_snapshot += 1
         if self._since_check >= self.check_every:
             self._since_check = 0
-            if not self._healthy():
-                self._rollback()
+            if self.replicas is not None:
+                self.replicas.sweep()
+            if not self._state_ok():
                 return False
         if self._since_snapshot >= self.snapshot_every:
             # Never snapshot unverified state.
@@ -765,6 +858,8 @@ class CFServer:
         self.stats.twin_hits += found
         self.stats.fallbacks += not found
         self.stats.overflows += overflowed
+        if self.replicas is not None:
+            self.replicas.apply_rows([new_state.n_active - 1], new_state)
 
     def onboard_user(self, ratings: np.ndarray, *,
                      use_twinsearch: bool = True) -> OnboardResult:
@@ -776,6 +871,7 @@ class CFServer:
             return OnboardResult(status="rejected", reason=reason,
                                  rung=LEVEL_NAMES[self.level])
 
+        self._replication_tick()
         if self.level == LEVEL_SHED:
             if self._clock() < self._shed_until:
                 self.stats.shed += 1
@@ -786,7 +882,8 @@ class CFServer:
                     status="shed", rung=LEVEL_NAMES[self.level],
                     retry_after_s=self._shed_until - self._clock())
             # Cooldown expired: probe the cheaper build path again.
-            self._set_level(LEVEL_TRADITIONAL)
+            self._set_level(LEVEL_DEGRADED if self._replicas_degraded()
+                            else LEVEL_TRADITIONAL)
 
         # Background rotation tick: a safe point (no op in flight).
         self._maintenance_tick()
@@ -818,7 +915,7 @@ class CFServer:
             probes = None
 
             def run():
-                new_state = base_lib.onboard_traditional(self.state, r0)
+                new_state = self._onboard_trad(self.state, r0)
                 self._sync()
                 return new_state, False, False
 
@@ -895,6 +992,13 @@ class CFServer:
             return max(1, int(k_neighbors) // SHED_QUERY_K_DIV)
         return int(k_neighbors)
 
+    def _pre_query(self) -> None:
+        if self.replicas is not None:
+            # Failover read: heal any poisoned rows from replicas before
+            # answering, so a lost shard degrades durability, not answers.
+            self._replication_tick()
+            self._state_ok()
+
     def _note_query_batch(self, n_valid: int, n_unique: int, savings: float,
                           dt_ms: float, degraded: bool) -> None:
         self.stats.query_batches += 1
@@ -918,6 +1022,7 @@ class CFServer:
                          and self._reject("recommend", guard.R_USER_ID, u))]
         if not valid:
             return results
+        self._pre_query()
         k_eff = self._query_k(k_neighbors)
         t0 = time.perf_counter()
 
@@ -965,6 +1070,7 @@ class CFServer:
                 valid.append(i)
         if not valid:
             return results
+        self._pre_query()
         k_eff = self._query_k(k)
         t0 = time.perf_counter()
 
@@ -1005,17 +1111,19 @@ class CFServer:
         n_act = self.state.n_active
         if self._cache is None:
             t0 = time.perf_counter()
-            self._cache = upd_lib.init_cache(self.state.ratings)
+            self._cache = self._init_cache(self.state.ratings)
             self._sync()
             self.stats.cache_init_ms.append((time.perf_counter() - t0) * 1e3)
         elif self._cache_rows < n_act:
             # Users onboarded since the cache was built (the reference
             # leaves their rows at 0 here: see ``_cache_rows``).
-            upd_lib.refresh_rows(self._cache, self.state.ratings,
-                                 self._cache_rows, n_act)
+            self._refresh_cache(self._cache, self.state.ratings,
+                                self._cache_rows, n_act)
         self._cache_rows = n_act
-        self.state, self._cache = upd_lib.add_rating(
+        self.state, self._cache = self._add(
             self.state, self._cache, user, item, rating)
+        if self.replicas is not None:
+            self.replicas.apply_rows([user], self.state)
         if self._plan is not None:
             # A refreshed row may invalidate part of the rotation plan's
             # precompute; the plan re-merges it before the swap.
@@ -1035,6 +1143,7 @@ class CFServer:
         if reason is not None:
             self._reject("add_rating", reason, rating)
             return False
+        self._replication_tick()
         self._crashpoint("add_rating.pre_wal")
         t0 = time.perf_counter()
         self._log("add_rating", fields={"user": int(user), "item": int(item),

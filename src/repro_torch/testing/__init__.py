@@ -1,8 +1,12 @@
-"""Deterministic fault-injection tooling for resilience tests (the crash
-half of ``repro.testing``)."""
+"""Deterministic fault-injection tooling for resilience tests."""
 from repro_torch.testing.faults import (CRASH_POINTS, ROTATION_CRASH_POINTS,
-                                        FakeClock, Flaky, SimulatedCrash,
-                                        install_crash)
+                                        FakeClock, Flaky, MalformedRequests,
+                                        SimulatedCrash, capacity_flood,
+                                        forbid_similarity_kernels,
+                                        inject_latency, install_crash,
+                                        kill_replica, poison_state)
 
 __all__ = ["CRASH_POINTS", "ROTATION_CRASH_POINTS", "FakeClock", "Flaky",
-           "SimulatedCrash", "install_crash"]
+           "MalformedRequests", "SimulatedCrash", "capacity_flood",
+           "forbid_similarity_kernels", "inject_latency", "install_crash",
+           "kill_replica", "poison_state"]

@@ -15,6 +15,11 @@ write path: ``RotationPlan.finalize`` bit-identical to
 bit-identical to the CPU plain path (integer ratings: every dot is an exact
 integer); a checkpoint from the card restores every leaf exactly; a crashed
 and recovered server on the card bit-identical to the uncrashed one.
+Replication and the buffered burst: a replica ``repair`` of card tensors
+bit-identical to the state before the poison (and a refused one leaves it
+untouched); the chunked base merge bit-identical to the unchunked one and
+to the CPU's plain version; ``onboard_batch_buffered`` on the card against
+the plain path on the CPU, flags exact, lists within 1e-6.
 """
 from __future__ import annotations
 
@@ -37,11 +42,15 @@ from repro_torch.kernels.similarity.ops import cosine_similarity
 from repro_torch.kernels.similarity.ref import similarity_ref
 from repro_torch.kernels.twin_probe.ref import twin_probe_ref
 from repro_torch.kernels.verify_rows.ref import verify_rows_ref
-from repro_torch.core import (RotationPlan, build_state, rotate_arena_frozen,
-                              update)
+from repro_torch.core import (RotationPlan, build_state, maintenance,
+                              onboard_batch_buffered, rotate_arena_frozen,
+                              set0_cap, update)
+from repro_torch.core.types import SENTINEL
+from repro_torch.distributed import ReplicatedArena, ReplicationConfig
 from repro_torch.serving import (CFServer, RotationConfig, ServerConfig,
                                  SnapshotConfig, WalConfig)
-from repro_torch.testing import SimulatedCrash, install_crash
+from repro_torch.testing import (SimulatedCrash, forbid_similarity_kernels,
+                                 install_crash, kill_replica)
 from repro_torch.training import checkpoint
 
 torch.set_num_threads(2)
@@ -514,3 +523,108 @@ def test_durable_server_on_card_recovers_bit_exact(cuda, tmp_path):
     for key in ("ratings", "norms", "sim_vals", "sim_idx", "n_active"):
         np.testing.assert_array_equal(a[key], b[key], err_msg=key)
     assert recovered.n_base == oracle.n_base
+
+
+def test_replica_repair_on_card_tensors(cuda):
+    rng = np.random.default_rng(6)
+    _, srv = _card_state(cuda, rng)
+    st = srv.state
+    good = [t.clone() for t in st[:4]]
+    arena = ReplicatedArena(st, ReplicationConfig(n_shards=4, r=2))
+    st.sim_vals[[3, 90, 150]] = float("nan")
+    st.ratings[41, 5] = float("inf")
+    st.norms[120] = -1.0
+    assert list(arena.bad_rows(st)) == [3, 41, 90, 120, 150]
+    fixed, rows = arena.repair(st)
+    assert fixed is st and list(rows) == [3, 41, 90, 120, 150]
+    for a, b in zip(st[:4], good):
+        assert a.is_cuda and torch.equal(a, b)
+    # Unrecoverable (r = 1, the shard's only replica lost): untouched.
+    arena = ReplicatedArena(st, ReplicationConfig(n_shards=4, r=1))
+    arena.kill_node(2)
+    lo = arena._slices[2].start
+    st.sim_vals[[lo, 0]] = float("nan")
+    before = [t.clone() for t in st[:4]]
+    fixed, rows = arena.repair(st)
+    assert fixed is None and list(rows) == [0, lo]
+    for a, b in zip(st[:4], before):
+        assert torch.equal(a.nan_to_num(9.0), b.nan_to_num(9.0))
+
+
+def test_kill_replica_on_card_heals_without_similarity_calls(cuda):
+    rng = np.random.default_rng(7)
+    R = _ratings(rng, 300, 90)
+    srv = CFServer(R, ServerConfig(
+        capacity_extra=8, c_probes=4,
+        replication=ReplicationConfig(n_shards=4, r=2, rebuild_rows=50)),
+        device="cuda")
+    for r in (R[4], _ratings(rng, 1, 90)[0], R[4]):
+        assert srv.onboard_user(r).ok
+    n = srv.state.n_active
+    good = [t[:n].clone() for t in srv.state[:4]]
+    before = srv.recommend(5, n=5)
+    forbid_similarity_kernels(srv)
+    kill_replica(srv, 1)
+    assert srv.recommend(5, n=5) == before
+    while srv.replicas.degraded():
+        srv.recommend(5, n=5)
+    assert srv.stats.repairs == 1 and srv.stats.rollbacks == 0
+    for a, b in zip(srv.state[:4], good):
+        assert torch.equal(a[:n], b)
+
+
+@pytest.mark.parametrize("chunk_rows", [1, 64, 333, 4096])
+def test_chunked_base_merge_on_card(cuda, monkeypatch, chunk_rows):
+    rng = np.random.default_rng(8)
+    st = build_state(torch.as_tensor(_ratings(rng, 700, 80), device=cuda))
+    k = 32
+    sims = torch.as_tensor(rng.uniform(-1, 1, (k, 700)).astype(np.float32),
+                           device=cuda)
+    sims[5] = sims[2]
+    ids = 700 + torch.arange(k, device=cuda)
+    whole = merge_insert(
+        torch.cat([torch.full((700, k), SENTINEL, device=cuda), st.sim_vals],
+                  dim=1),
+        torch.cat([torch.full((700, k), -1, dtype=torch.int32, device=cuda),
+                   st.sim_idx], dim=1), sims.T, ids.to(torch.int32))
+    monkeypatch.setattr(maintenance, "SORT_CHUNK_ROWS", chunk_rows)
+    before = launch_counts()["list_merge"]
+    out = maintenance.merge_new_users_into_base(st.sim_vals, st.sim_idx,
+                                                sims, ids)
+    torch.cuda.synchronize()
+    assert launch_counts()["list_merge"] == before + -(-700 // chunk_rows)
+    host = maintenance.merge_new_users_into_base(
+        st.sim_vals.cpu(), st.sim_idx.cpu(), sims.cpu(), ids.cpu())
+    for a, b, c in zip(out, whole, host):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+
+
+@pytest.mark.parametrize("maintain", [False, True])
+def test_buffered_burst_on_card_matches_plain_path(cuda, maintain):
+    rng = np.random.default_rng(9)
+    n, m, c = 500, 120, 6
+    R = _ratings(rng, n, m)
+    fresh = _ratings(np.random.default_rng(10), 5, m)
+    R_new = np.stack([R[3], fresh[0], R[40], fresh[0], fresh[1], R[3],
+                      fresh[1], fresh[2], fresh[3], fresh[4], fresh[0]])
+    probes = torch.as_tensor(rng.integers(0, n, (R_new.shape[0], c)))
+    outs = {}
+    for d in ("cuda", "cpu"):
+        st = build_state(torch.as_tensor(R, device=d))
+        outs[d] = onboard_batch_buffered(
+            st, torch.as_tensor(R_new), probes, s_max=set0_cap(n),
+            maintain=maintain)
+    a, b = outs["cuda"], outs["cpu"]
+    found = b[2].found
+    assert found.any() and (~found).any()
+    for name in ("found", "n_candidates", "overflowed"):
+        assert torch.equal(getattr(a[2], name).cpu(), getattr(b[2], name))
+    assert torch.equal(a[2].twin_idx.cpu()[found], b[2].twin_idx[found])
+    assert lists_match(b[0].numpy(), b[1].numpy(), a[0].cpu().numpy(),
+                       a[1].cpu().numpy(), 1e-6) is None
+    if maintain:
+        (av, ai), (bv, bi) = a[3], b[3]
+        assert av.is_cuda and av.shape == (n, n + R_new.shape[0])
+        assert lists_match(bv.numpy(), bi.numpy(), av.cpu().numpy(),
+                           ai.cpu().numpy(), 1e-6) is None
+

@@ -24,11 +24,12 @@ from repro.serving import CFServer as JServer
 from repro.serving import LadderConfig as JLadder
 from repro.serving import ServerConfig as JConfig
 from repro.serving import SnapshotConfig as JSnap
-from repro.testing.faults import poison_state
+from repro.testing.faults import poison_state as jpoison_state
 from repro.training.elastic import StragglerMonitor as JMonitor
 from repro_torch.bridge import lists_match, ranked_match, state_to_numpy
 from repro_torch.serving import (CFServer, LadderConfig, LEVEL_SHED,
                                  ServerConfig, SnapshotConfig)
+from repro_torch.testing import poison_state
 from repro_torch.training.elastic import StragglerMonitor
 from tests.conftest import make_ratings
 
@@ -114,8 +115,8 @@ def test_server_script_parity(rng):
         jsrv.predict(5, 2, k=7), abs=TOL)
 
     # A poisoned arena rolls back to the last good snapshot.
-    poison_state(jsrv, rows=[2, 17])
-    tsrv.state.sim_vals[[2, 17]] = float("nan")
+    jpoison_state(jsrv, rows=[2, 17])
+    poison_state(tsrv, rows=[2, 17])
     res = _onboard_both(jsrv, tsrv, fresh[4])
     assert res.status == "rolled_back" and res.user_id == -1
     _assert_states(jsrv, tsrv)
@@ -166,12 +167,36 @@ def test_malformed_payloads_are_refused(rng):
     assert srv.quarantine.summary()["total"] == 2
 
 
-@pytest.mark.parametrize("cfg", [
-    ServerConfig(replication=object()),
-])
-def test_unported_config_raises(rng, cfg):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CFServer(make_ratings(rng, n=20, m=8), cfg, device="cpu")
+def test_replicated_server_builds_and_mirrors_every_write(rng):
+    """``replication`` is served (it was refused before it was ported):
+    the replicas mirror the arena after onboards and add_ratings."""
+    from repro_torch.distributed import ReplicationConfig
+    R = make_ratings(rng, n=30, m=12)
+    srv = CFServer(R, ServerConfig(capacity_extra=6, replication=
+                                   ReplicationConfig(n_shards=3, r=2)),
+                   device="cpu")
+    assert srv.replicas.redundancy() == 2 and not srv.replicas.degraded()
+    assert len(srv.stats.replica_reset_ms) == 1        # the construction's
+    for i in (1, 1, 7):
+        assert srv.onboard_user(R[i]).ok
+    assert srv.add_rating(4, 2, 5.0)
+    host = state_to_numpy(srv.state)
+    for (_, s), rep in srv.replicas._replicas.items():
+        sl = srv.replicas._slices[s]
+        for f in ("ratings", "norms", "sim_vals", "sim_idx"):
+            np.testing.assert_array_equal(rep.data[f], host[f][sl])
+    assert srv.stats.summary()["repairs"] == 0
+    # Replication adds no reference cycle: the arena goes with the server.
+    import gc
+    import weakref
+    gc.disable()
+    try:
+        refs = [weakref.ref(x) for x in (srv, srv.state.ratings,
+                                         srv.replicas)]
+        del srv
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
 
 
 def test_dropped_server_frees_its_arena_without_the_cycle_collector(
