@@ -30,7 +30,11 @@ Phases, in order; the script exits non-zero as soon as a check fails:
                (262,144 bags x 8 Zipf ids).  Counts zeroed before, read
                after: each of the three must have run.  Then each output
                against its plain version (exact), a ragged small case, and
-               cold-L2 timings beside the bound and a library yardstick.
+               cold-L2 timings beside the bound, the launch floor (a cold
+               one-element fill) and a library yardstick; the cold times
+               of ``ops.twin_probe`` and of ``ops.embedding_bag`` with the
+               mask, each one kernel a call by the profiler's count; and
+               embedding_bag's two thread layouts timed in turns.
   6. durability — a durable ``CFServer`` at the same width: WAL (fsync
                on) and checkpoints in a temporary directory on local disk
                (about 16 GB each, two at once at most), incremental rotation
@@ -434,19 +438,25 @@ def device_share(torch, fn, reps: int = 3) -> dict:
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6 / reps
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
     rows = sorted(((e.self_device_time_total / reps, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
+                   for e in device), reverse=True)
     if not rows:
         log(f"    wall {wall_us / 1e3:.3f} ms, device time not measured (the "
             "trace holds no device rows)")
-        return {"wall_ms": wall_us / 1e3, "device_ms": None, "top": []}
+        return {"wall_ms": wall_us / 1e3, "device_ms": None, "top": [],
+                "kernels_per_call": None}
     dev_us = sum(t for t, _ in rows)
+    # Device operations (kernels, fills, copies) the trace saw per call.
+    per_call = sum(e.count for e in device) / reps
     top = ", ".join(f"{k[:48]} {t:.0f}us" for t, k in rows[:5])
     log(f"    wall {wall_us / 1e3:.3f} ms, device {dev_us / 1e3:.3f} ms "
-        f"({dev_us / wall_us:.1%} busy); top: {top}")
+        f"({dev_us / wall_us:.1%} busy), {per_call:g} device operations a "
+        f"call; top: {top}")
     return {"wall_ms": wall_us / 1e3, "device_ms": dev_us / 1e3,
-            "top": [[k, t / 1e3] for t, k in rows[:8]]}
+            "top": [[k, t / 1e3] for t, k in rows[:8]],
+            "kernels_per_call": per_call}
 
 
 def douban_width_ratings():
@@ -672,7 +682,8 @@ def drive_kernel_api(torch, cf: dict, bags: dict) -> tuple[dict, dict]:
     return out, counts
 
 
-def check_twin_probe(torch, cf: dict, out: dict, flush) -> dict:
+def check_twin_probe(torch, cf: dict, out: dict, flush,
+                     floor_ms: float) -> dict:
     from repro_torch.kernels._lib import TWIN_PROBE
     from repro_torch.kernels.twin_probe.kernel import twin_probe_cuda
     from repro_torch.kernels.twin_probe.ops import twin_probe
@@ -703,6 +714,7 @@ def check_twin_probe(torch, cf: dict, out: dict, flush) -> dict:
 
     s0 = cf["s0_twin"]
     ms = cold_ms(lambda: twin_probe_cuda(rows, s0, tol), 20, flush)
+    ops_ms = cold_ms(lambda: twin_probe(rows, s0, tol=tol), 20, flush)
     plain_ms = cold_ms(lambda: twin_probe_ref(rows, s0, tol), 20, flush)
     # Back to back, with the cached ctypes prototype and with the cache
     # cleared before every call (the prototype set on every call), in eight
@@ -720,26 +732,32 @@ def check_twin_probe(torch, cf: dict, out: dict, flush) -> dict:
     host_ms = statistics.median(turns["cached"])
     host_uncached_ms = statistics.median(turns["uncached"])
     b_ms, b_by = bound(4.0 * c * N + 4.0 * c + N + 4, 3.0 * c * N)
-    log(f"  twin_probe ({c}x{N}): kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-        f" ms, bound {b_ms:.5f} ms ({b_by}); no single library call; "
+    log(f"  twin_probe ({c}x{N}): kernel {ms:.4f} ms, ops.twin_probe "
+        f"{ops_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
+        f"({b_by}), launch floor {floor_ms:.4f} ms; no single library call; "
         f"{host_ms:.4f} ms per call back to back (median of "
         f"{[round(x, 4) for x in turns['cached']]}), {host_uncached_ms:.4f} "
         f"ms with the prototype set on every call (median of "
         f"{[round(x, 4) for x in turns['uncached']]})")
-    log("  twin_probe under the profiler (warm L2):")
-    prof = device_share(torch, lambda: twin_probe_cuda(rows, s0, tol), 5)
+    log("  ops.twin_probe under the profiler (warm L2):")
+    prof = device_share(torch, lambda: twin_probe(rows, s0, tol=tol), 5)
+    check(prof["kernels_per_call"] == 1, "ops.twin_probe is one kernel a "
+          "call")
     return {"name": "twin_probe", "route": "cuda",
             "source": "src/repro_torch/csrc/twin_probe.cu",
             "replaces": "src/repro/kernels/twin_probe/kernel.py:35",
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "launch_floor_ms": floor_ms, "ops_ms": ops_ms,
+            "kernels_per_call": prof["kernels_per_call"],
             "call_ms": host_ms, "call_ms_prototype_every_call":
             host_uncached_ms, "profiled": prof, "shape": [c, N],
             "count_twin": int(out["probe_twin"][1]),
             "count_fresh": int(out["probe_fresh"][1])}
 
 
-def check_verify_rows(torch, cf: dict, out: dict, flush) -> dict:
+def check_verify_rows(torch, cf: dict, out: dict, flush,
+                      floor_ms: float) -> dict:
     from repro_torch.kernels.verify_rows.kernel import verify_rows_cuda
     from repro_torch.kernels.verify_rows.ops import verify_rows
     from repro_torch.kernels.verify_rows.ref import verify_rows_ref
@@ -781,7 +799,8 @@ def check_verify_rows(torch, cf: dict, out: dict, flush) -> dict:
     b_ms, b_by = bound(4.0 * (s * m + m) + 2.0 * s, float(s * m))
     b8_ms, _ = bound(1.0 * (s * m + m) + 2.0 * s, float(s * m))
     log(f"  verify_rows ({s}x{m}): f32 kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); int8 kernel "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), launch floor "
+        f"{floor_ms:.4f} ms; int8 kernel "
         f"{ms8:.4f} ms, plain {plain_ms8:.4f} ms, bound {b8_ms:.4f} ms; no "
         f"single library call; f32 {host_ms:.4f} ms per call back to back")
     log("  verify_rows f32 under the profiler (warm L2):")
@@ -793,12 +812,15 @@ def check_verify_rows(torch, cf: dict, out: dict, flush) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "int8_ms": ms8, "int8_plain_ms": plain_ms8,
             "int8_bound_ms": b8_ms, "call_ms": host_ms, "profiled": prof,
+            "launch_floor_ms": floor_ms,
             "shape": [s, m]}
 
 
-def check_embedding_bag(torch, bags: dict, out: dict, flush) -> dict:
+def check_embedding_bag(torch, bags: dict, out: dict, flush,
+                        floor_ms: float) -> dict:
     import torch.nn.functional as F
-    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda
+    from repro_torch.kernels.embedding_bag.kernel import (
+        COLUMN, LAYOUT, PAIR, embedding_bag_cuda)
     from repro_torch.kernels.embedding_bag.ops import embedding_bag
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
     table = bags["table"]
@@ -822,7 +844,24 @@ def check_embedding_bag(torch, bags: dict, out: dict, flush) -> dict:
           "embedding_bag ragged (5 x 3, ids out of range both ways) "
           "bit-identical to the plain version")
 
-    ms = cold_ms(lambda: embedding_bag_cuda(table, idx, w), 20, flush)
+    bw, bm = bags["w"], bags["mask"]
+    other = COLUMN if LAYOUT == PAIR else PAIR
+    check(torch.equal(embedding_bag_cuda(table, idx, bw, bm, layout=other),
+                      plain), f"embedding_bag in the {other} layout "
+          "bit-identical to the plain version")
+    # The kernel on the premultiplied weights (the earlier kernel's work
+    # and bound), in the chosen layout and the other one, in turns; then
+    # with the mask folded in, and through ops.embedding_bag as a caller
+    # calls it.
+    turns = {LAYOUT: [], other: []}
+    for lay in (LAYOUT, other, other, LAYOUT):
+        turns[lay].append(cold_ms(lambda: embedding_bag_cuda(
+            table, idx, w, layout=lay), 10, flush))
+    ms = statistics.mean(turns[LAYOUT])
+    other_ms = statistics.mean(turns[other])
+    masked_ms = cold_ms(lambda: embedding_bag_cuda(table, idx, bw, bm), 20,
+                        flush)
+    ops_ms = cold_ms(lambda: embedding_bag(table, idx, bw, bm), 20, flush)
     plain_ms = cold_ms(lambda: embedding_bag_ref(table, idx.long(), w), 20,
                        flush)
     lib = F.embedding_bag(idx, table, mode="sum", per_sample_weights=w)
@@ -833,19 +872,36 @@ def check_embedding_bag(torch, bags: dict, out: dict, flush) -> dict:
     rows = int(torch.unique(idx).numel())
     b_ms, b_by = bound(4.0 * rows * dim + 8.0 * B * hot + 4.0 * B * dim,
                        2.0 * B * hot * dim)
+    mb_ms, _ = bound(4.0 * rows * dim + 9.0 * B * hot + 4.0 * B * dim,
+                     3.0 * B * hot * dim)
     log(f"  embedding_bag ({B} bags x {hot}, {rows} distinct rows of "
-        f"{V} x {dim}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"F.embedding_bag {lib_ms:.4f} ms (max diff {lib_err:.3g}), bound "
-        f"{b_ms:.4f} ms ({b_by}); {host_ms:.4f} ms per call back to back")
-    log("  embedding_bag under the profiler (warm L2):")
-    prof = device_share(torch, lambda: embedding_bag_cuda(table, idx, w), 5)
+        f"{V} x {dim}): kernel {ms:.4f} ms in the {LAYOUT} layout (the "
+        f"{other} layout {other_ms:.4f} ms; turns {turns}), with the mask "
+        f"folded in {masked_ms:.4f} ms (bound {mb_ms:.4f} ms), "
+        f"ops.embedding_bag with the "
+        f"mask {ops_ms:.4f} ms, plain {plain_ms:.4f} ms, F.embedding_bag "
+        f"{lib_ms:.4f} ms (max diff {lib_err:.3g}), bound {b_ms:.4f} ms "
+        f"({b_by}), launch floor {floor_ms:.4f} ms; {host_ms:.4f} ms per "
+        "call back to back")
+    log("  ops.embedding_bag with the mask under the profiler (warm L2):")
+    prof = device_share(torch, lambda: embedding_bag(table, idx, bw, bm), 5)
+    check(prof["kernels_per_call"] == 1, "ops.embedding_bag (float32 "
+          "weights, bool mask) is one kernel a call")
+    log("  F.embedding_bag (the yardstick) under the profiler (warm L2):")
+    lib_prof = device_share(torch, lambda: F.embedding_bag(
+        idx, table, mode="sum", per_sample_weights=w), 5)
     return {"name": "embedding_bag", "route": "cuda",
             "source": "src/repro_torch/csrc/embedding_bag.cu",
             "replaces": "src/repro/kernels/embedding_bag/kernel.py:36",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             "library_max_abs_err": lib_err, "distinct_rows": rows,
-            "call_ms": host_ms, "profiled": prof,
+            "launch_floor_ms": floor_ms, "ops_ms": ops_ms,
+            "kernels_per_call": prof["kernels_per_call"],
+            "layout": LAYOUT, "other_layout": other,
+            "other_layout_ms": other_ms, "masked_ms": masked_ms,
+            "masked_bound_ms": mb_ms, "call_ms": host_ms, "profiled": prof,
+            "library_profiled": lib_prof,
             "shape": [B, hot, V, dim]}
 
 
@@ -857,9 +913,16 @@ def run_kernel_api(torch, dev, srv, R_host) -> tuple[dict, dict]:
     out, counts = drive_kernel_api(torch, cf, bags)
     scratch = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
     flush = scratch.zero_
-    entries = {"twin_probe": check_twin_probe(torch, cf, out, flush),
-               "verify_rows": check_verify_rows(torch, cf, out, flush),
-               "embedding_bag": check_embedding_bag(torch, bags, out, flush)}
+    # The launch floor: the cold time of the least kernel, a one-element
+    # fill, beside which the shortest kernels' times are read.
+    one = torch.empty(1, device=dev)
+    floor_ms = cold_ms(lambda: one.fill_(1.0), 20, flush)
+    log(f"  launch floor (one-element fill_, cold): {floor_ms:.4f} ms")
+    entries = {
+        "twin_probe": check_twin_probe(torch, cf, out, flush, floor_ms),
+        "verify_rows": check_verify_rows(torch, cf, out, flush, floor_ms),
+        "embedding_bag": check_embedding_bag(torch, bags, out, flush,
+                                             floor_ms)}
     return entries, counts
 
 

@@ -38,10 +38,12 @@ def _nvcc() -> str:
 
 def _c_arg(a):
     """One launch argument as its ctypes value: a tensor as its data
-    pointer, a Python float as a C ``float`` (a kernel's tolerance), any
-    other value as a C ``int``."""
+    pointer and None as a null one, a Python float as a C ``float`` (a
+    kernel's tolerance), any other value as a C ``int``."""
     if isinstance(a, torch.Tensor):
         return ctypes.c_void_p(a.data_ptr())
+    if a is None:
+        return ctypes.c_void_p(None)
     if isinstance(a, float):
         return ctypes.c_float(a)
     return ctypes.c_int(int(a))
@@ -105,15 +107,20 @@ class Kernel:
             self._lib = ctypes.CDLL(str(self.library))
         return self._lib
 
-    def launch(self, fn: str, *args) -> None:
-        """Call C entry point ``fn`` on the current stream.  Arguments are
-        tensors (passed as device pointers), Python floats (passed as C
-        ``float``) or ints; the stream goes last.  The entry point's ctypes
-        prototype is set on its first call and again only when the argument
-        types change.  Raises if the launch was refused."""
+    def launch(self, fn: str, *args,
+               stream: torch.cuda.Stream | None = None) -> None:
+        """Call C entry point ``fn`` on ``stream`` (by default the current
+        stream; a kernel that keeps state per stream passes the one it
+        keyed it by).  Arguments are tensors (passed as device pointers),
+        None (a null pointer), Python floats (passed as C ``float``) or
+        ints; the stream goes last.  The entry point's ctypes prototype is
+        set on its first call and again only when the argument types
+        change.  Raises if the launch was refused."""
         lib = self.load()
         cargs = [_c_arg(a) for a in args]
-        cargs.append(ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if stream is None:
+            stream = torch.cuda.current_stream()
+        cargs.append(ctypes.c_void_p(stream.cuda_stream))
         f = getattr(lib, fn)
         types = tuple(type(c) for c in cargs)
         if self._prototypes.get(fn) != types:

@@ -1,4 +1,6 @@
-"""Public serving surface of the port."""
+"""Public serving surface of the port: the reference's ``__all__`` less
+``LMServer`` (the LM server is not ported yet)."""
+from repro_torch.distributed.replication import ReplicationConfig
 from repro_torch.serving.cf_server import (CFServer, OnboardResult,
                                            ServerStats, LEVEL_DEGRADED,
                                            LEVEL_SHED, LEVEL_TRADITIONAL,
@@ -15,7 +17,7 @@ from repro_torch.serving.wal import WalRecord, WriteAheadLog
 __all__ = [
     "CFServer", "OnboardResult", "ServerStats",
     "ServerConfig", "SnapshotConfig", "WalConfig", "RotationConfig",
-    "LadderConfig",
+    "LadderConfig", "ReplicationConfig",
     "LEVEL_TWINSEARCH", "LEVEL_TRADITIONAL", "LEVEL_DEGRADED", "LEVEL_SHED",
     "Quarantine", "Rejection", "RetryPolicy", "call_with_retry",
     "WalRecord", "WriteAheadLog",

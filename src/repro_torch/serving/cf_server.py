@@ -265,10 +265,20 @@ class ServerStats:
         }
 
 
+# Legacy dict-key -> OnboardResult attribute (identity for the rest).
+_RESULT_KEY_MAP = {"ms": "latency_ms", "level": "rung"}
+
+
 @dataclass(frozen=True)
 class OnboardResult:
-    """Typed outcome of ``onboard_user`` / ``onboard_batch`` (the
-    reference's legacy ``(uid, info)`` unpacking is not carried over)."""
+    """Typed outcome of ``onboard_user`` / ``onboard_batch``.
+
+    The reference's legacy shapes work as there: iterating yields
+    ``(user_id, result)``, so ``uid, info = srv.onboard_user(r)`` unpacks,
+    and ``result["ms"]`` / ``result["level"]`` / ``result.get(...)``
+    resolve through the legacy key names (``ms`` -> ``latency_ms``,
+    ``level`` -> ``rung``).
+    """
     user_id: int = -1
     status: str = "ok"        # ok|rejected|shed|error|rolled_back
     rung: str = "twinsearch"  # ladder level the request was served at
@@ -283,6 +293,33 @@ class OnboardResult:
     @property
     def ok(self) -> bool:
         return self.status == "ok"
+
+    # -- legacy (user_id, info_dict) compatibility --------------------------
+
+    def __iter__(self):
+        yield self.user_id
+        yield self
+
+    def __getitem__(self, key):
+        if isinstance(key, int):
+            return (self.user_id, self)[key]
+        try:
+            return getattr(self, _RESULT_KEY_MAP.get(key, key))
+        except AttributeError:
+            raise KeyError(key) from None
+
+    def get(self, key, default=None):
+        try:
+            val = self[key]
+        except KeyError:
+            return default
+        return default if val is None else val
+
+    def __contains__(self, key) -> bool:
+        try:
+            return self[key] is not None
+        except KeyError:
+            return False
 
 
 class CFServer:

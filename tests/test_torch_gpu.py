@@ -416,6 +416,190 @@ def test_embedding_bag_kernel_refuses_other_dtypes(cuda):
                                          device=cuda))
 
 
+def _device_ops_per_call(fn, calls=3):
+    """Device operations (kernels, fills, copies) the profiler sees per
+    call of ``fn``, after one call outside the trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA)
+    return n / calls
+
+
+def _probe_rows(rng, c, N):
+    rows = np.round(rng.uniform(-1, 1, (c, N)), 2).astype(np.float32)
+    s0 = rows[:, N // 2].copy()
+    rows[:, N - 1] = s0
+    rows[:, 0] = s0
+    if N >= 8:
+        rows[c - 1, N - 2] = np.nan
+        rows[:, N - 3] = -2.0
+    return rows, s0
+
+
+@pytest.mark.parametrize("c", [1, 4, 8, 9, 16, 17])
+@pytest.mark.parametrize("N", [5, 1027, 4096, 32896, 100003])
+def test_twin_probe_kernel_instantiations(cuda, c, N):
+    """Each template probe count (4, 8, 16) and the run-time one (1, 9,
+    17), on the float4 path (N % 4 == 0) and the scalar one."""
+    rows, s0 = _probe_rows(np.random.default_rng(c * N), c, N)
+    rows_t = torch.as_tensor(rows, device=cuda)
+    s0_t = torch.as_tensor(s0, device=cuda)
+    mask, count = _launched("twin_probe", twin_probe, rows_t, s0_t,
+                            tol=0.01)
+    rmask, rcount = twin_probe_ref(rows_t, s0_t, 0.01)
+    assert torch.equal(mask, rmask) and int(count) == int(rcount)
+    assert int(count) == int(mask.sum()) >= 3 - (N < 8)
+
+
+@pytest.mark.parametrize("c,N", [(8, 4096), (9, 1028), (8, 1027)])
+def test_twin_probe_kernel_unaligned_rows(cuda, c, N):
+    """Rows that start one element past a 16-byte boundary (a view into a
+    larger buffer) take the scalar path, with the same answer."""
+    rows, s0 = _probe_rows(np.random.default_rng(N), c, N)
+    buf = torch.zeros(c * N + 1, device=cuda)
+    view = buf[1:].view(c, N)
+    view.copy_(torch.as_tensor(rows))
+    assert view.data_ptr() % 16 == 4 and view.is_contiguous()
+    s0_t = torch.as_tensor(s0, device=cuda)
+    mask, count = _launched("twin_probe", twin_probe, view, s0_t, tol=0.01)
+    rmask, rcount = twin_probe_ref(view, s0_t, 0.01)
+    assert torch.equal(mask, rmask) and int(count) == int(rcount)
+
+
+def test_twin_probe_two_streams_keep_their_counts(cuda):
+    """Calls on two streams at once, interleaved without a sync between
+    them: each keeps its own ticket, so each count is its own input's."""
+    rng = np.random.default_rng(11)
+    c, N = 8, 1 << 20
+    inputs = []
+    for want in (0, 1):
+        rows = rng.uniform(-1, 1, (c, N)).astype(np.float32)
+        s0 = rows[:, 7].copy()
+        hits = rng.choice(N, 1000 + 2345 * want, replace=False)
+        rows[:, hits] = s0[:, None]
+        rows_t = torch.as_tensor(rows, device=cuda)
+        s0_t = torch.as_tensor(s0, device=cuda)
+        inputs.append((rows_t, s0_t, twin_probe_ref(rows_t, s0_t, 0.0)))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    out = [[], []]
+    for _ in range(40):
+        for k in (0, 1):
+            with torch.cuda.stream(streams[k]):
+                rows_t, s0_t, _ = inputs[k]
+                out[k].append(twin_probe(rows_t, s0_t, tol=0.0))
+    torch.cuda.synchronize()
+    assert int(inputs[0][2][1]) != int(inputs[1][2][1])
+    for k in (0, 1):
+        rmask, rcount = inputs[k][2]
+        for mask, count in out[k]:
+            assert int(count) == int(rcount)
+            assert torch.equal(mask, rmask)
+
+
+def test_twin_probe_is_one_kernel_a_call(cuda):
+    rows, s0 = _probe_rows(np.random.default_rng(3), 8, 32896)
+    rows_t = torch.as_tensor(rows, device=cuda)
+    s0_t = torch.as_tensor(s0, device=cuda)
+    assert _device_ops_per_call(
+        lambda: twin_probe(rows_t, s0_t, tol=1e-6)) == 1
+
+
+def _bag_inputs(cuda, rng, nb, hot, V, dim):
+    table = rng.normal(size=(V, dim)).astype(np.float32)
+    table[0, 0] = np.inf
+    idx = rng.integers(-3, V + 3, (nb, hot)).astype(np.int32)
+    w = rng.uniform(0, 1, (nb, hot)).astype(np.float32)
+    w[0, 0] = 0.0
+    mask = rng.random((nb, hot)) < 0.6
+    return [torch.as_tensor(x, device=cuda) for x in (table, idx, w, mask)]
+
+
+@pytest.mark.parametrize("hot", [1, 3, 8, 16, 33])
+@pytest.mark.parametrize("dim", [1, 10, 16, 128])
+@pytest.mark.parametrize("layout", ["column", "pair"])
+def test_embedding_bag_kernel_instantiations(cuda, hot, dim, layout):
+    """Each template hot (1, 8, 16) and the run-time one (3, 33: scalar
+    slot loads, and a chunked loop), both thread layouts (the pair layout
+    takes columns two at a time where dim is even), with weights and a
+    mask folded in and with neither: bit for bit."""
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda
+    table, idx, w, mask = _bag_inputs(cuda, np.random.default_rng(
+        hot * 131 + dim), 301, hot, 97, dim)
+    V = table.shape[0]
+    clipped = torch.clamp(idx.long(), 0, V - 1)
+    out = _launched("embedding_bag", embedding_bag_cuda, table, idx, w,
+                    mask, layout=layout)
+    assert _same_bits(out, embedding_bag_ref(table, clipped,
+                                             w * mask.float()))
+    out1 = _launched("embedding_bag", embedding_bag_cuda, table, idx,
+                     layout=layout)
+    assert _same_bits(out1, embedding_bag_ref(
+        table, clipped, torch.ones(idx.shape, device=cuda)))
+    outm = _launched("embedding_bag", embedding_bag_cuda, table, idx,
+                     None, mask, layout=layout)
+    assert _same_bits(outm, embedding_bag_ref(table, clipped,
+                                              mask.float()))
+
+
+@pytest.mark.parametrize("shift", ["idx", "w", "mask", "table"])
+def test_embedding_bag_kernel_unaligned_views(cuda, shift):
+    """One input a view one element past its buffer's start (hot = 8, so
+    the slot loads would be vectors, and dim = 10, so the rows would be
+    read in pairs): the kernel takes the scalar loads or the column
+    layout instead, with the same bits."""
+    table, idx, w, mask = _bag_inputs(cuda, np.random.default_rng(8), 517,
+                                      8, 203, 10)
+    t = {"idx": idx, "w": w, "mask": mask, "table": table}[shift]
+    buf = torch.zeros(t.numel() + 1, dtype=t.dtype, device=cuda)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    args = {"idx": idx, "w": w, "mask": mask, "table": table,
+            shift: view}
+    out = _launched("embedding_bag", embedding_bag, args["table"],
+                    args["idx"], args["w"], args["mask"])
+    ref = embedding_bag_ref(table, torch.clamp(idx.long(), 0, 202),
+                            w * mask.float())
+    assert _same_bits(out, ref)
+
+
+def test_embedding_bag_host_forms_on_card(cuda):
+    """Forms the kernel does not take in itself (float16 weights, a float
+    mask, int64 ids) go through the host steps first, with the plain
+    version's bits."""
+    table, idx, w, mask = _bag_inputs(cuda, np.random.default_rng(4), 64,
+                                      8, 50, 16)
+    ids64 = idx.long() + (1 << 32)                 # wraps back to idx
+    clipped = torch.clamp(idx.long(), 0, 49)
+    w16 = w.half()
+    cases = [(ids64, w, mask, w * mask.float()),
+             (idx, w16, mask, (w16 * mask.half()).float()),
+             (idx, w, mask.float(), w * mask.float()),
+             (idx, None, mask.float(), mask.float())]
+    for ids, ww, mm, weff in cases:
+        out = _launched("embedding_bag", embedding_bag, table, ids, ww, mm)
+        assert _same_bits(out, embedding_bag_ref(table, clipped, weff))
+
+
+def test_embedding_bag_is_one_kernel_a_call(cuda):
+    """float32 weights, a bool mask and int32 ids: one launch a call, the
+    clip and the mask's product inside it."""
+    table, idx, w, mask = _bag_inputs(cuda, np.random.default_rng(6), 4096,
+                                      8, 1000, 10)
+    assert _device_ops_per_call(
+        lambda: embedding_bag(table, idx, w, mask)) == 1
+    assert _device_ops_per_call(lambda: embedding_bag(table, idx)) == 1
+
+
 def _card_state(cuda, rng, n=300, m=90, extra=16):
     """A card arena with a burst of twins and fresh rows in its write
     region, and its CPU copy."""

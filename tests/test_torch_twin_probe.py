@@ -165,3 +165,42 @@ def test_kernel_launch_sets_prototype_once_per_argument_types(monkeypatch):
     kernel.launch("twin_probe_f32", t, 3, 9)
     assert len(entry.set_to) == 2
     assert entry.restype is ctypes.c_int and kernel.launches == 4
+
+
+@pytest.mark.parametrize("c,N", [(1, 515), (1, 1024), (8, 1027), (8, 4096),
+                                 (9, 1026), (9, 4099), (4, 258), (16, 777)])
+def test_twin_probe_probe_counts_and_ragged_widths(c, N):
+    """The kernel's instantiated probe counts (4, 8, 16) and run-time ones
+    (1, 9), at N divisible by 4 and not: exact twins, values at the
+    tolerance's edge and one ulp beyond (either side of it after fp32
+    rounding, as in jnp), NaN and SENTINEL columns in the last, ragged
+    group of four."""
+    rng = np.random.default_rng(c * 7919 + N)
+    rows = np.round(rng.uniform(-1, 1, (c, N)), 2).astype(np.float32)
+    s0 = rows[:, N // 2].copy()
+    tol = np.float32(0.01)
+    for x in (N - 1, N - 5, 0):
+        rows[:, x] = s0                              # exact twins
+    rows[:, N - 2] = s0 + tol                        # at the edge
+    rows[:, N - 3] = np.nextafter(s0 + tol, np.float32(2))
+    rows[c - 1, N - 4] = np.nan
+    rows[:, N - 6] = -2.0                            # SENTINEL
+    mask = _assert_parity(rows, s0, float(tol))
+    assert mask[N - 1] and mask[N - 5] and mask[0]
+    assert not mask[N - 4] and not mask[N - 6]
+
+
+@pytest.mark.parametrize("case", ["cpu", "shape", "dtype"])
+def test_kernel_binding_refuses_before_launch(case):
+    """``twin_probe_cuda`` checks shapes, dtypes and the device in Python,
+    before any pointer reaches the kernel."""
+    from repro_torch.kernels.twin_probe.kernel import twin_probe_cuda
+    rows, s0 = torch.zeros((3, 8)), torch.zeros(3)
+    if case == "shape":
+        s0 = torch.zeros(2)
+    elif case == "dtype":
+        rows = rows.double()
+    before = launch_counts()["twin_probe"]
+    with pytest.raises(TypeError if case == "dtype" else ValueError):
+        twin_probe_cuda(rows, s0, 1e-6)
+    assert launch_counts()["twin_probe"] == before
