@@ -75,13 +75,34 @@ Phases, in order; the script exits non-zero as soon as a check fails:
                burst on the card (1e-6), and a 4,096-row slice of the
                maintained lists against the plain merge on the CPU, bit for
                bit.  Prints ``{"buffered": {...}}``.
-  9. movielens — the same request script at 943 x 1,682 on the card and on
+  9. CF family — the ``twinsearch-cf`` architecture through
+               ``models.cf`` over the phase-4 ratings (32,768 users: the
+               full 129,490-user (N, N) arena would need 134 GB):
+               ``build_step`` on the bf16 ratings ``input_structs
+               ("douban_build")`` asks for (the similarity kernel), a
+               4,096-row slice of its lists against a plain computation on
+               the CPU (1e-5) and its product timed beside ``torch.matmul``;
+               then ``douban_onboard``'s burst of k = 30 (15 base copies, 8
+               fresh, 7 repeats; c = 8) through ``onboard_step`` on a
+               one-rank NCCL process group (the sharded burst), and with
+               ``maintain=True`` (list_merge), counts zeroed before the
+               build and read after the bursts.  Held to
+               ``onboard_batch_buffered`` on the same inputs (flags exact,
+               lists within 2e-5), a 4,096-row slice of the maintained
+               lists to the plain merge on the CPU (bit for bit); the
+               collective bytes of each user, counted by wrapping
+               ``torch.distributed``'s collectives, beside (2c+2)·N·4.
+               Then ``onboard_batch_resilient`` (a NaN row healed) and
+               ``build_step`` at ``ml_build`` (943 x 1,682, card against
+               CPU), and ``serve_cf`` at its defaults.  Prints
+               ``{"cf_family": {...}}``.
+ 10. movielens — the same request script at 943 x 1,682 on the card and on
                the CPU (the plain versions), held to the parity tests'
                tolerances.
- 10. summary — ``{"kernels": [...]}`` (all six kernels, each with the
-               launches of the phases that drove it: 4, 6, 7 and 8 for the
-               main path's three, 5 for the others), the nvidia-smi line,
-               and last ``{"ok": true, "device": {...}}``.
+ 11. summary — ``{"kernels": [...]}`` (all six kernels, each with the
+               launches of the phases that drove it: 4, 6, 7, 8 and 9 for
+               the main path's three, 5 for the others), the nvidia-smi
+               line, and last ``{"ok": true, "device": {...}}``.
 
 It imports neither ``jax`` nor the JAX package, and refuses to run (exit 2)
 without a CUDA device or without ``src/repro_torch`` beside it.
@@ -100,6 +121,7 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12         # fp32 on the CUDA cores, no tensor cores
+BF16_FLOPS_PER_S = 989e12        # bf16 on the tensor cores, dense
 DOUBAN_USERS, DOUBAN_ITEMS, DOUBAN_RATINGS = 129_490, 58_541, 16_830_839
 N_USERS = 32_768                 # the full (N, N) arena would need 134 GB
 CAPACITY_EXTRA = 64
@@ -122,13 +144,12 @@ DUR_BUDGET_ROWS, DUR_SNAPSHOT_EVERY, DUR_ADDS = 4096, 32, 32
 REP_SHARDS, REP_R, REP_REBUILD_ROWS, REP_ONBOARDS = 4, 2, 4096, 12
 MAIN_PATH = ("similarity", "list_merge", "knn_score")
 API_KERNELS = ("twin_probe", "verify_rows", "embedding_bag")
-# xDeepFM (configs/xdeepfm.py, configs/_fields.py::CRITEO39, taken as
-# numbers): 39 power-law fields, 60,802,963 rows in all, the first 10M; 10
-# columns.  Traffic: RECSYS_SHAPES "serve_bulk" (262,144 rows per batch) of
-# the multi-hot field, 8 Zipf(1.3) ids each, valid with probability 0.6
-# (data/recsys_stream.py).
-XDEEPFM_ROWS, XDEEPFM_FIELD0, XDEEPFM_DIM = 60_802_963, 10_000_000, 10
-SERVE_BULK, MULTI_HOT, MULTI_VALID, ZIPF_A = 262_144, 8, 0.6, 1.3
+# xDeepFM's table and traffic come from ``repro_torch.configs`` (39
+# power-law fields, 60,802,963 rows in all, the first 10M; 10 columns;
+# RECSYS_SHAPES "serve_bulk", 262,144 rows per batch).  The multi-hot
+# field's traffic is the reference's data/recsys_stream.py rule, not
+# ported yet: 8 Zipf(1.3) ids each, valid with probability 0.6.
+MULTI_HOT, MULTI_VALID, ZIPF_A = 8, 0.6, 1.3
 # The flush before each cold call: far more than the H100's 50 MB L2, and
 # long enough on the card (~0.7 ms) that the host has enqueued the call
 # before the start event fires, so the events time the card's work.
@@ -431,32 +452,38 @@ def device_share(torch, fn, reps: int = 3) -> dict:
     from torch.profiler import ProfilerActivity, profile
     fn()                                           # first-call effects
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6 / reps
-    device = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    rows = sorted(((e.self_device_time_total / reps, e.key)
-                   for e in device), reverse=True)
-    if not rows:
+    # A short trace now and then comes back with no device rows at all
+    # (seen once on ops.twin_probe): trace again, up to 3 times, and report
+    # how many traces it took.
+    for attempts in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6 / reps
+        device = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        rows = sorted(((e.self_device_time_total / reps, e.key)
+                       for e in device), reverse=True)
+        if rows:
+            break
         log(f"    wall {wall_us / 1e3:.3f} ms, device time not measured (the "
             "trace holds no device rows)")
+    if not rows:
         return {"wall_ms": wall_us / 1e3, "device_ms": None, "top": [],
-                "kernels_per_call": None}
+                "kernels_per_call": None, "attempts": attempts}
     dev_us = sum(t for t, _ in rows)
     # Device operations (kernels, fills, copies) the trace saw per call.
     per_call = sum(e.count for e in device) / reps
     top = ", ".join(f"{k[:48]} {t:.0f}us" for t, k in rows[:5])
     log(f"    wall {wall_us / 1e3:.3f} ms, device {dev_us / 1e3:.3f} ms "
         f"({dev_us / wall_us:.1%} busy), {per_call:g} device operations a "
-        f"call; top: {top}")
+        f"call, {attempts} trace(s); top: {top}")
     return {"wall_ms": wall_us / 1e3, "device_ms": dev_us / 1e3,
             "top": [[k, t / 1e3] for t, k in rows[:8]],
-            "kernels_per_call": per_call}
+            "kernels_per_call": per_call, "attempts": attempts}
 
 
 def douban_width_ratings():
@@ -643,12 +670,15 @@ def bag_api_inputs(torch, dev) -> dict:
     rows by ``data/recsys_stream.py``'s rule, a 0.6 validity mask and
     random weights, all made with numpy from the seed."""
     import numpy as np
+    from repro_torch.configs import get_arch
+    spec = get_arch("xdeepfm")
+    rows, dim = spec.config.total_vocab, spec.config.embed_dim
+    field0 = spec.config.field_vocab_sizes[0]
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
-    table = torch.randn((XDEEPFM_ROWS, XDEEPFM_DIM), device=dev, generator=g)
+    table = torch.randn((rows, dim), device=dev, generator=g)
     rng = np.random.default_rng(SEED + 3)
-    shape = (SERVE_BULK, MULTI_HOT)
-    idx = ((rng.zipf(ZIPF_A, size=shape) - 1) % XDEEPFM_FIELD0).astype(
-        np.int32)
+    shape = (spec.shape("serve_bulk").dim("batch"), MULTI_HOT)
+    idx = ((rng.zipf(ZIPF_A, size=shape) - 1) % field0).astype(np.int32)
     mask = rng.random(shape) < MULTI_VALID
     w = rng.random(shape).astype(np.float32)
     return {"table": table, "idx": torch.as_tensor(idx, device=dev),
@@ -1455,24 +1485,28 @@ def run_replication(torch, dev, R_host) -> dict:
 # Phase 8: the buffered burst at Douban width
 # ---------------------------------------------------------------------------
 
-def buffered_burst(R_host):
-    """32 users: 16 rows copied from heavy base users, 8 fresh profiles and
-    8 repeats of them, each repeat after its original.  Returns the rows
-    and, per row, the base source or the burst index of the original."""
+def buffered_burst(R_host, n_copies: int = 16, n_fresh: int = 8,
+                   n_repeats: int = 8, seed: int = SEED + 30):
+    """A burst of ``n_copies`` rows copied from heavy base users,
+    ``n_fresh`` fresh profiles and ``n_repeats`` repeats of the first
+    fresh ones, each repeat after its original (phase 8: 16, 8, 8).
+    Returns the rows and, per row, the base source or the burst index of
+    the original."""
     import numpy as np
     from repro_torch.data.synthetic import plant_twins
-    rng = np.random.default_rng(SEED + 30)
+    rng = np.random.default_rng(seed)
     heavy = np.flatnonzero((R_host != 0).sum(axis=1) >= 50)
-    base = rng.choice(heavy, size=16, replace=False)
+    base = rng.choice(heavy, size=n_copies, replace=False)
     items = [("base", int(u)) for u in base]
-    items += [("fresh", i) for i in range(8)]
+    items += [("fresh", i) for i in range(n_fresh)]
     keys = list(rng.random(len(items)))
-    for i in range(8):                       # a repeat follows its original
-        k0 = keys[16 + i]
+    for i in range(n_repeats):               # a repeat follows its original
+        k0 = keys[n_copies + i]
         items.append(("repeat", i))
         keys.append(k0 + (1.0 - k0) * rng.random())
     order = np.argsort(keys, kind="stable")
-    fresh = [plant_twins(R_host, 1, seed=SEED + 800 + i)[0] for i in range(8)]
+    fresh = [plant_twins(R_host, 1, seed=SEED + 800 + i)[0]
+             for i in range(n_fresh)]
     rows, kinds, first = [], [], {}
     for pos, j in enumerate(order):
         kind, v = items[j]
@@ -1619,7 +1653,422 @@ def run_buffered(torch, dev, R_host, trad_burst_ms: float) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 9: MovieLens shape, card against CPU
+# Phase 9: the CF model family and the sharded burst at Douban width
+# ---------------------------------------------------------------------------
+
+class CollectiveBytes:
+    """Wraps ``torch.distributed``'s collectives while it is active and
+    records, per call, the bytes of the tensor it is called with (a
+    gather: its output), its element count and dtype."""
+
+    NAMES = ("all_reduce", "all_gather_into_tensor")
+
+    def __init__(self, dist):
+        self.dist, self.calls, self._saved = dist, [], {}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            self._saved[name] = fn = getattr(self.dist, name)
+            setattr(self.dist, name, self._wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self.dist, name, fn)
+
+    def _wrap(self, fn):
+        def counted(tensor, *args, **kwargs):
+            self.calls.append((tensor.numel() * tensor.element_size(),
+                               tensor.numel(), tensor.dtype))
+            return fn(tensor, *args, **kwargs)
+        return counted
+
+    def per_user(self, torch, c: int) -> list[int]:
+        """Bytes per user: each user's first collective is the sum of its
+        c float32 probe sims, the only float32 call of c entries."""
+        users = []
+        for nbytes, numel, dtype in self.calls:
+            if numel == c and dtype == torch.float32:
+                users.append(0)
+            users[-1] += nbytes
+        return users
+
+
+def sparse_rows_product(torch, Rn, rows: slice):
+    """The plain computation of ``Rn[rows] @ Rn.T`` on the CPU, fp32,
+    from the nonzeros of ``Rn`` (the ratings are 0.2% dense, so a sparse
+    product takes seconds where a dense one on the host would take about
+    a minute).  Each term is a product of two bf16 values, exact in fp32;
+    only the order of the sums differs from the card's."""
+    nz = torch.nonzero(Rn, as_tuple=True)
+    vals = Rn[nz].float().cpu()
+    r, c = nz[0].cpu(), nz[1].cpu()
+    n, m = Rn.shape
+    keep = (r >= rows.start) & (r < rows.stop)
+    A = torch.sparse_coo_tensor(torch.stack([r[keep] - rows.start,
+                                             c[keep]]), vals[keep],
+                                (rows.stop - rows.start, m),
+                                check_invariants=False).to_sparse_csr()
+    Bt = torch.sparse_coo_tensor(torch.stack([c, r]), vals, (m, n),
+                                 check_invariants=False).to_sparse_csr()
+    return (A @ Bt).to_dense()
+
+
+def run_cf_family(torch, dev, R_host, buffered_ms: float) -> dict:
+    """The ``twinsearch-cf`` architecture's two step kinds at Douban width,
+    through ``models.cf``: ``build_step`` on the bf16 ratings that
+    ``input_structs("douban_build")`` asks for (the similarity kernel),
+    and ``onboard_step`` on a one-rank NCCL process group, the sharded
+    burst (``maintain`` False and True: the list_merge kernel), each held
+    to a plain computation.  Then ``onboard_batch_resilient`` and
+    ``build_step`` at MovieLens shape and ``serve_cf`` at its defaults."""
+    import dataclasses
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.bridge import lists_match
+    from repro_torch.configs import get_arch
+    from repro_torch.core import build_state, onboard_batch_buffered, set0_cap
+    from repro_torch.core import twinsearch_sharded as tsh
+    from repro_torch.core.knn import SORT_CHUNK_ROWS
+    from repro_torch.core.maintenance import merge_new_users_into_base
+    from repro_torch.core.rotation import unsorted_rows
+    from repro_torch.core.twinsearch import make_probes
+    from repro_torch.distributed import local_state
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import cf
+
+    t_phase = time.perf_counter()
+    spec = get_arch("twinsearch-cf")
+    build_dtype = cf.input_structs(spec.config,
+                                   spec.shape("douban_build"))["R"].dtype
+    onb = cf.input_structs(spec.config, spec.shape("douban_onboard"))
+    k, c = onb["R_new"].shape[0], onb["probes"].shape[1]
+    # The registered config's sim_tol is 0.0; the main drive takes the
+    # server's 1e-6 (ServerConfig.sim_tol), and 0.0 is run once below.
+    cfg = dataclasses.replace(spec.config, sim_tol=1e-6)
+    N, m = R_host.shape
+
+    base = build_state(torch.as_tensor(R_host, device=dev).float(),
+                       capacity_extra=0)
+    burst, kinds = buffered_burst(R_host, n_copies=k // 2, n_fresh=8,
+                                  n_repeats=k - k // 2 - 8, seed=SEED + 40)
+    R_new = torch.as_tensor(burst, device=dev).to(onb["R_new"].dtype)
+    probes = make_probes(torch.Generator().manual_seed(SEED + 41), k, c, N)
+    s_max = set0_cap(N, cfg.set0_divisor, cfg.set0_slack)
+    R_b = torch.as_tensor(R_host, device=dev).to(build_dtype)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+    try:
+        local = local_state(base, 0, dist.get_world_size())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        # The main path, counted: the build, then the burst both ways.
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        vals, idx = cf.build_step(R_b)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = cf.onboard_step(local, R_new, probes, cfg, distributed=True)
+        torch.cuda.synchronize()
+        sharded_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        outm = tsh.onboard_batch_sharded(local, R_new, probes, s_max=s_max,
+                                         tol=cfg.sim_tol, maintain=True)
+        torch.cuda.synchronize()
+        sharded_m_ms = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        check(counts["similarity"] >= 1 and counts["list_merge"] >= 1,
+              f"kernels similarity (build_step) and list_merge (the sharded "
+              f"burst's merge) launched in this phase ({counts})")
+
+        metrics = check_cf_build(torch, dev, R_b, vals, idx, build_s)
+        del vals, idx
+        torch.cuda.empty_cache()
+
+        # The sharded burst against the buffered burst on the same inputs.
+        found = out[2].found.cpu().numpy()
+        expect = np.array([kind != "fresh" for kind, _ in kinds])
+        check(np.array_equal(found, expect),
+              f"sharded burst flags match the burst: {int(found.sum())} "
+              f"twins of {k} ({k // 2} base copies, {k - k // 2 - 8} "
+              "repeats), 8 fresh")
+        ref = onboard_batch_buffered(base, R_new, probes, s_max=s_max,
+                                     tol=cfg.sim_tol)
+        flags = all(torch.equal(getattr(got[2], f), getattr(ref[2], f))
+                    for got in (out, outm)
+                    for f in ("found", "twin_idx", "n_candidates",
+                              "overflowed"))
+        whys = [lists_match(ref[0].cpu().numpy(), ref[1].cpu().numpy(),
+                            got[0].cpu().numpy(), got[1].cpu().numpy(), 2e-5)
+                for got in (out, outm)]
+        same = torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+        check(flags and whys == [None, None], f"sharded burst (both maintain "
+              f"values) = buffered burst on the same inputs: found, "
+              f"twin_idx, n_candidates, overflowed exact; lists within 2e-5 "
+              f"(bit for bit: {same}; {whys})")
+        del ref
+        mv, mi = outm[3]
+        once = all(bool(((mi == N + t).sum(dim=1) == 1).all())
+                   for t in range(k))
+        check(once and mv.shape == (N, N + k), f"each new user once in every "
+              f"maintained base row ({tuple(mv.shape)})")
+        U = unsorted_rows(outm[0], outm[1], slice(0, k))[:, :N]
+        rows = slice(0, SORT_CHUNK_ROWS)
+        pv, pi = merge_new_users_into_base(
+            base.sim_vals[rows].cpu(), base.sim_idx[rows].cpu(),
+            U[:, rows].cpu(), (N + torch.arange(k)))
+        check(torch.equal(mv[rows].cpu(), pv) and torch.equal(mi[rows].cpu(),
+                                                              pi),
+              f"maintained base rows 0-{SORT_CHUNK_ROWS - 1} bit-identical "
+              "to the plain merge on the CPU")
+        refm = onboard_batch_buffered(base, R_new, probes, s_max=s_max,
+                                      tol=cfg.sim_tol, maintain=True)
+        check(torch.equal(refm[3][0], mv) and torch.equal(refm[3][1], mi),
+              "the maintained lists equal the buffered burst's, bit for bit")
+        del refm, mv, mi, pv, pi, U, outm
+        torch.cuda.empty_cache()
+
+        # Both bursts again on the same inputs, in turns (buffered,
+        # sharded, sharded, buffered) for each maintain value, each call
+        # ending in a sync.
+        def burst_ms(fn, maintain):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(base if fn is onboard_batch_buffered else local, R_new,
+                     probes, s_max=s_max, tol=cfg.sim_tol, maintain=maintain)
+            torch.cuda.synchronize()
+            del res
+            return (time.perf_counter() - t0) * 1e3
+
+        turns = {}
+        for maintain in (False, True):
+            order = (onboard_batch_buffered, tsh.onboard_batch_sharded,
+                     tsh.onboard_batch_sharded, onboard_batch_buffered)
+            ms = [burst_ms(fn, maintain) for fn in order]
+            turns[f"maintain_{str(maintain).lower()}"] = {
+                "buffered_ms": [ms[0], ms[3]], "sharded_ms": [ms[1], ms[2]]}
+            log(f"  maintain={maintain} in turns: buffered {ms[0]:.1f}, "
+                f"sharded {ms[1]:.1f}, sharded {ms[2]:.1f}, buffered "
+                f"{ms[3]:.1f} ms")
+
+        # Collective bytes per user, counted by wrapping the collectives.
+        with CollectiveBytes(dist) as cb:
+            _, _, st = tsh.onboard_batch_sharded(local, R_new, probes,
+                                                 s_max=s_max,
+                                                 tol=cfg.sim_tol)
+        per_user = cb.per_user(torch, c)
+        branch = ["fallback" if not f else ("base" if t < N else "new")
+                  for f, t in zip(st.found.tolist(), st.twin_idx.tolist())]
+        check(len(per_user) == k and all(
+            b == tsh.payload_bytes(N, c, br)
+            for b, br in zip(per_user, branch)),
+              "collective bytes of each user = payload_bytes (docstring)")
+        base_bytes = sorted({b for b, br in zip(per_user, branch)
+                             if br == "base"})
+        log(f"  collective bytes per user: base twin {base_bytes} "
+            f"((2c+2)·N·4 = {(2 * c + 2) * N * 4}; the reference's claim "
+            f"(c+2)·N·4 = {(c + 2) * N * 4}); fallback "
+            f"{tsh.payload_bytes(N, c, 'fallback')}, burst twin "
+            f"{tsh.payload_bytes(N, c, 'new')}")
+
+        # The registered config's tolerance, 0.0, on the same inputs.
+        out0 = cf.onboard_step(local, R_new, probes, spec.config,
+                               distributed=True)
+        ref0 = onboard_batch_buffered(base, R_new, probes, s_max=s_max,
+                                      tol=spec.config.sim_tol)
+        check(all(torch.equal(getattr(out0[2], f), getattr(ref0[2], f))
+                  for f in ("found", "twin_idx", "n_candidates",
+                            "overflowed")),
+              f"at the registered sim_tol {spec.config.sim_tol}: flags = "
+              f"buffered burst's; {int(out0[2].found.sum())} twins found, "
+              f"{int((out0[2].found & (out0[2].twin_idx < N)).sum())} of "
+              "them base twins")
+        tol0_base = int((out0[2].found & (out0[2].twin_idx < N)).sum())
+        del out0, ref0, out, local
+        peak = torch.cuda.max_memory_allocated()
+        del base, R_b
+        torch.cuda.empty_cache()
+
+        resilient = check_cf_resilient(torch, dev)
+    finally:
+        dist.destroy_process_group()
+    ml = check_ml_build(torch, dev)
+    served = check_serve_cf(torch)
+    metrics.update({
+        "k": k, "c": c, "n_base": N, "sim_tol": cfg.sim_tol,
+        "sharded_first_ms": {"maintain_false": sharded_ms,
+                             "maintain_true": sharded_m_ms},
+        "turns": turns, "phase8_buffered_burst_ms": buffered_ms,
+        "collective_bytes_per_user": {
+            "base_twin": base_bytes, "formula_2c_plus_2": (2 * c + 2) * N * 4,
+            "reference_claim_c_plus_2": (c + 2) * N * 4,
+            "fallback": tsh.payload_bytes(N, c, "fallback"),
+            "burst_twin": tsh.payload_bytes(N, c, "new")},
+        "registered_sim_tol_base_twins": tol0_base,
+        "twins": int(found.sum()), "peak_gb": peak / 1e9,
+        "launches": counts, "resilient": resilient, "ml_build": ml,
+        "serve_cf": served})
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    log(f"  build_step {build_s:.2f} s (torch.matmul of the fp32 copies "
+        f"{metrics['matmul_s']:.2f} s); sharded burst of {k}, first calls: "
+        f"{sharded_ms:.1f} ms, maintain=True {sharded_m_ms:.1f} ms (phase "
+        f"8's buffered burst of 32: {buffered_ms:.1f} ms); peak "
+        f"{peak / 1e9:.2f} GB; phase {metrics['phase_s']:.1f} s")
+    return metrics
+
+
+def check_cf_build(torch, dev, R_b, vals, idx, build_s: float) -> dict:
+    """``build_step``'s lists against a plain computation on the CPU for
+    a 4,096-row slice (within 1e-5, ids except near-ties); the kernel's
+    product timed beside ``torch.matmul`` on fp32 copies, TF32 off."""
+    from repro_torch.bridge import lists_match
+    from repro_torch.core.knn import SORT_CHUNK_ROWS, sort_rows
+    from repro_torch.core.similarity import EPS, row_norms
+    from repro_torch.kernels.similarity.kernel import similarity_cuda
+    N, m = R_b.shape
+    Rf = R_b.float()
+    Rn = (Rf / torch.clamp_min(row_norms(Rf), EPS)[:, None]).to(R_b.dtype)
+    del Rf
+    rows = slice(0, SORT_CHUNK_ROWS)
+    t0 = time.perf_counter()
+    pv, pi = sort_rows(sparse_rows_product(torch, Rn, rows))
+    plain_s = time.perf_counter() - t0
+    why = lists_match(pv.numpy(), pi.numpy(), vals[rows].cpu().numpy(),
+                      idx[rows].cpu().numpy(), 1e-5)
+    err = float((vals[rows].cpu() - pv).abs().max())
+    check(why is None, f"build_step rows 0-{SORT_CHUNK_ROWS - 1} within 1e-5 "
+          f"of the plain computation on the CPU, ids except near ties "
+          f"(max sorted diff {err:.3g}; {plain_s:.1f} s; {why})")
+    del pv, pi
+    ones = torch.ones(N, device=dev)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    S = similarity_cuda(Rn, Rn, ones, ones)
+    end.record()
+    end.synchronize()
+    kernel_ms = start.elapsed_time(end)
+    del S
+    torch.backends.cuda.matmul.allow_tf32 = False
+    Rf = Rn.float()
+    del Rn
+    start.record()
+    S = torch.matmul(Rf, Rf.T)
+    end.record()
+    end.synchronize()
+    matmul_ms = start.elapsed_time(end)
+    del S, Rf
+    torch.cuda.empty_cache()
+    # The operations over the peak rate of the inputs' type: bf16 inputs
+    # against the tensor cores' bf16 rate, though the kernel multiplies on
+    # the CUDA cores in fp32.
+    flops = 2.0 * N * N * m
+    if R_b.dtype == torch.bfloat16:
+        flops *= FP32_FLOPS_PER_S / BF16_FLOPS_PER_S
+    moved = 2.0 * R_b.element_size() * N * m + 4.0 * 2 * N + 4.0 * N * N
+    b_ms, b_by = bound(moved, flops)
+    log(f"  build_step ({N} x {m}, {R_b.dtype}): {build_s:.2f} s; its "
+        f"similarity launch {kernel_ms:.1f} ms ({b_ms / kernel_ms:.0%} of the"
+        f" bound, {b_ms:.1f} ms, {b_by}); torch.matmul of fp32 copies "
+        f"{matmul_ms:.1f} ms")
+    return {"build_s": build_s, "matmul_s": matmul_ms / 1e3,
+            "build_kernel": {"shape": [N, N, m], "dtype": str(R_b.dtype),
+                             "ms": kernel_ms, "bound_ms": b_ms,
+                             "bound_by": b_by, "library_ms": matmul_ms,
+                             "max_abs_err_slice": err},
+            "plain_slice_cpu_s": plain_s}
+
+
+def check_cf_resilient(torch, dev) -> dict:
+    """``onboard_batch_resilient`` at MovieLens shape: a NaN row healed
+    from the replicas bit for bit, and the burst equal to the sharded
+    burst on the clean arena."""
+    import numpy as np
+    from repro_torch.core import build_state, set0_cap
+    from repro_torch.core import twinsearch_sharded as tsh
+    from repro_torch.core.twinsearch import make_probes
+    from repro_torch.data.synthetic import movielens_100k, plant_twins
+    from repro_torch.distributed import (ReplicatedArena, ReplicationConfig,
+                                         local_state)
+    from repro_torch.serving.guard import RetryPolicy
+    R = movielens_100k(SEED).astype(np.float32)
+    n = R.shape[0]
+    st = build_state(torch.as_tensor(R, device=dev))
+    burst = np.stack([R[11], plant_twins(R, 1, seed=SEED + 60)[0], R[11],
+                      R[400]]).astype(np.float32)
+    probes = make_probes(torch.Generator().manual_seed(SEED + 61),
+                         burst.shape[0], C_PROBES, n)
+    want = tsh.onboard_batch_sharded(local_state(st, 0, 1),
+                                     torch.as_tensor(burst), probes,
+                                     s_max=set0_cap(n))
+    clean = [t.clone() for t in st[:4]]
+    replicas = ReplicatedArena(st, ReplicationConfig(n_shards=4, r=2))
+    st.sim_vals[5] = float("nan")
+    t0 = time.perf_counter()
+    healed, got = tsh.onboard_batch_resilient(
+        st, torch.as_tensor(burst), probes, s_max=set0_cap(n),
+        replicas=replicas, retry=RetryPolicy())
+    ms = (time.perf_counter() - t0) * 1e3
+    check(replicas.repaired_rows == 1 and all(
+        torch.equal(a, b) for a, b in zip(healed[:4], clean)),
+          "onboard_batch_resilient at MovieLens shape healed the NaN row, "
+          "bit for bit")
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+          and torch.equal(got[2].found, want[2].found),
+          "the resilient burst equals the sharded burst on the clean arena")
+    return {"ms": ms, "repaired_rows": replicas.repaired_rows}
+
+
+def check_ml_build(torch, dev) -> dict:
+    """``build_step`` at ``ml_build`` (943 x 1,682), full size, in bf16 (the
+    config's input dtype) and f32: the card against the CPU, within 1e-5."""
+    import numpy as np
+    from repro_torch.bridge import lists_match
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import movielens_100k
+    from repro_torch.models import cf
+    spec = get_arch("twinsearch-cf")
+    shape = spec.shape("ml_build")
+    R = movielens_100k(SEED).astype(np.float32)
+    check_quiet(R.shape == (shape.dim("n_users"), shape.dim("n_items")),
+                "ml_build shape")
+    errs = {}
+    for dtype in (cf.input_structs(spec.config, shape)["R"].dtype,
+                  torch.float32):
+        cv, ci = cf.build_step(torch.as_tensor(R, device=dev).to(dtype))
+        pv, pi = cf.build_step(torch.as_tensor(R).to(dtype))
+        why = lists_match(pv.numpy(), pi.numpy(), cv.cpu().numpy(),
+                          ci.cpu().numpy(), 1e-5)
+        errs[str(dtype)] = float((cv.cpu() - pv).abs().max())
+        check(why is None, f"build_step at ml_build {R.shape} in {dtype}: "
+              f"card = CPU within 1e-5, ids except near ties (max diff "
+              f"{errs[str(dtype)]:.3g}; {why})")
+    return errs
+
+
+def check_serve_cf(torch) -> dict:
+    """``repro_torch.launch.serve.serve_cf`` once, in this process, at its
+    defaults (2,000 users x 800 items, on the card)."""
+    from repro_torch.launch import serve
+    args = serve.parser().parse_args([])
+    t0 = time.perf_counter()
+    srv = serve.serve_cf(args)
+    s = srv.stats.summary()
+    check(args.device == "cuda" and srv.state.ratings.is_cuda
+          and s["twin_hits"] == s["onboarded"] == 8,
+          f"serve_cf at its defaults ({args.users} x {args.items}) on the "
+          f"card: {s['twin_hits']} of 8 planted twins found")
+    out = {"s": time.perf_counter() - t0, "twin_hits": s["twin_hits"],
+           "onboard_p50_ms": s["onboard_p50_ms"]}
+    del srv
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: MovieLens shape, card against CPU
 # ---------------------------------------------------------------------------
 
 def movielens_script(torch, device: str):
@@ -1771,11 +2220,15 @@ def main() -> int:
         buffered = run_buffered(torch, dev, R_host, server["burst_ms"])
         torch.cuda.empty_cache()
 
-        log("== 9. MovieLens shape, card against CPU")
+        log("== 9. CF model family and sharded burst at Douban width")
+        cf_family = run_cf_family(torch, dev, R_host, buffered["burst_ms"])
+        torch.cuda.empty_cache()
+
+        log("== 10. MovieLens shape, card against CPU")
         run_movielens(torch)
 
-        log("== 10. summary")
-        main_phases = (server, durability, replication, buffered)
+        log("== 11. summary")
+        main_phases = (server, durability, replication, buffered, cf_family)
         kernels = []
         for kname in MAIN_PATH + API_KERNELS:
             e = dict(entries[kname])
@@ -1783,6 +2236,8 @@ def main() -> int:
                              if kname in MAIN_PATH else api_launches[kname])
             if kname == "list_merge":
                 e["plan_merge"] = durability["plan_merge"]
+            if kname == "similarity":
+                e["build"] = cf_family["build_kernel"]
             kernels.append(e)
         total_s = time.perf_counter() - t_start
         log(f"  total {total_s:.1f} s")
@@ -1790,6 +2245,7 @@ def main() -> int:
         print(json.dumps({"durability": durability}))
         print(json.dumps({"replication": replication}))
         print(json.dumps({"buffered": buffered}))
+        print(json.dumps({"cf_family": cf_family}))
         print(json.dumps({"kernels": kernels}))
         print(nvidia_smi_line())
         print(json.dumps({"ok": True, "device": {

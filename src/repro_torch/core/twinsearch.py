@@ -52,10 +52,19 @@ def candidate_mask(state: CFState, probe_idx: torch.Tensor,
     list; the per-probe sets are scattered to user order through the list's
     ids and AND-reduced.  Ids of -1 (rotation padding, SENTINEL values,
     never in range) wrap to the last column as JAX's scatter does."""
-    N = state.capacity
+    return mask_from_probe_rows(state.sim_vals[probe_idx],
+                                state.sim_idx[probe_idx], probe_idx, sims0,
+                                tol)
+
+
+def mask_from_probe_rows(rows_v: torch.Tensor, rows_i: torch.Tensor,
+                         probe_idx: torch.Tensor, sims0: torch.Tensor,
+                         tol: float) -> torch.Tensor:
+    """``candidate_mask`` from the c probes' sorted lists, however they were
+    fetched: ``rows_v`` (c, N) ascending values, ``rows_i`` (c, N) ids."""
+    N = rows_v.shape[1]
     c = probe_idx.shape[0]
-    rows_v = state.sim_vals[probe_idx]                  # (c, N) ascending
-    rows_i = state.sim_idx[probe_idx].long()
+    rows_i = rows_i.long()
     lo = torch.searchsorted(rows_v, (sims0 - tol)[:, None], side="left")
     hi = torch.searchsorted(rows_v, (sims0 + tol)[:, None], side="right")
     pos = torch.arange(N, device=rows_v.device)[None, :]

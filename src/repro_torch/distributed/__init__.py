@@ -1,8 +1,10 @@
-"""Replication over the row-sharded arena, and the row split it keys on."""
+"""Replication over the row-sharded arena, and the row split it keys on.
+``__all__`` is the reference's, less the mesh-only names."""
 from repro_torch.distributed.replication import (ReplicaState,
                                                  ReplicatedArena,
                                                  ReplicationConfig)
-from repro_torch.distributed.sharding import shard_row_slice
+from repro_torch.distributed.sharding import (cf_shardings, local_state,
+                                              shard_row_slice)
 
-__all__ = ["ReplicaState", "ReplicatedArena", "ReplicationConfig",
-           "shard_row_slice"]
+__all__ = ["cf_shardings", "ReplicaState", "ReplicatedArena",
+           "ReplicationConfig"]

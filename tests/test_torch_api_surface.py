@@ -1,13 +1,16 @@
-"""Port parity of the public surface: ``repro_torch.serving`` and
-``repro_torch.data`` against the reference's snapshot in
+"""Port parity of the public surface: ``repro_torch.serving``,
+``repro_torch.data``, ``repro_torch.distributed`` and
+``repro_torch.configs`` against the reference's snapshot in
 ``tests/test_api_surface.py``.
 
 The port's ``serving.__all__`` is the reference's less ``LMServer`` (not
 ported yet); the config, result and stats dataclasses have the reference's
 field sets (``ServerStats`` may add timing fields); ``OnboardResult``
 keeps the legacy ``(uid, info)`` protocol with the same answers as the
-reference's; ``repro_torch.data`` exports the four rating generators,
-which give the reference's arrays for the same seed.  A CPU server and the
+reference's.  ``data.__all__`` is the reference's less the two recsys
+streams, and its rating generators give the reference's arrays for the
+same seed; ``distributed.__all__`` is the reference's less its mesh-only
+names; ``configs.__all__`` is the reference's.  A CPU server and the
 reference's server onboard the same ratings through the legacy unpacking:
 user ids, rungs, statuses and twin flags exact (a latency is a wall-clock
 reading, so only its key mapping is held).
@@ -137,6 +140,40 @@ def test_data_plant_twins_matches_reference():
         assert np.array_equal(got, want)
     from repro_torch import data
     assert set(data.__all__) <= set(jdata.__all__)
+
+
+# Wait for the recsys model (ROADMAP Queue 1, item 4).
+DATA_NOT_PORTED = {"CTRStream", "TwoTowerStream"}
+# Mesh-only names of ``repro.distributed``: they wait for the LM, GNN and
+# recsys models (ROADMAP Queue 1, item 4).
+DISTRIBUTED_NOT_PORTED = {"MeshAxes", "named", "zero_extend", "mesh_axes",
+                          "lm_shardings", "gnn_shardings",
+                          "recsys_shardings"}
+
+
+def test_data_all_is_the_reference_less_recsys_streams():
+    from repro_torch import data
+    assert set(data.__all__) == set(jdata.__all__) - DATA_NOT_PORTED
+    assert len(data.__all__) == len(set(data.__all__))
+    for name in data.__all__:
+        assert getattr(data, name).__module__.startswith("repro_torch.")
+
+
+def test_distributed_all_is_the_reference_less_mesh_names():
+    import repro.distributed as jdist
+    import repro_torch.distributed as tdist
+    assert set(tdist.__all__) == set(jdist.__all__) - DISTRIBUTED_NOT_PORTED
+    assert DISTRIBUTED_NOT_PORTED <= set(jdist.__all__)
+    for name in tdist.__all__:
+        assert getattr(tdist, name).__module__.startswith("repro_torch.")
+
+
+def test_configs_all_is_the_reference():
+    import repro.configs as jcfg
+    import repro_torch.configs as tcfg
+    assert tcfg.__all__ == jcfg.__all__
+    for name in tcfg.__all__:
+        assert getattr(tcfg, name).__module__.startswith("repro_torch.")
 
 
 def _clock():

@@ -19,7 +19,14 @@ Replication and the buffered burst: a replica ``repair`` of card tensors
 bit-identical to the state before the poison (and a refused one leaves it
 untouched); the chunked base merge bit-identical to the unchunked one and
 to the CPU's plain version; ``onboard_batch_buffered`` on the card against
-the plain path on the CPU, flags exact, lists within 1e-6.
+the plain path on the CPU, flags exact, lists within 1e-6.  The CF family
+and the sharded burst, on a one-rank NCCL process group: the sharded burst
+on the card against the buffered burst's plain path on the CPU (flags
+exact, lists within 1e-6) and the card's buffered burst (bit for bit), its
+collective bytes equal to ``payload_bytes``, the resilient burst healing a
+NaN row bit for bit; ``build_step`` on the similarity kernel against its
+plain path within 1e-5; ``twins_graph`` and ``gaussian`` on card tensors
+equal to the CPU's.
 """
 from __future__ import annotations
 
@@ -812,3 +819,154 @@ def test_buffered_burst_on_card_matches_plain_path(cuda, maintain):
         assert lists_match(bv.numpy(), bi.numpy(), av.cpu().numpy(),
                            ai.cpu().numpy(), 1e-6) is None
 
+
+
+# ---------------------------------------------------------------------------
+# The CF model family and the sharded burst (NCCL, one rank)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl1(cuda):
+    """A one-rank NCCL process group on the card, torn down after."""
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    yield cuda
+    dist.destroy_process_group()
+
+
+def _sharded_case(n=512, m=120, c=6):
+    rng = np.random.default_rng(21)
+    R = _ratings(rng, n, m)
+    fresh = _ratings(np.random.default_rng(22), 4, m)
+    R_new = np.stack([R[3], fresh[0], R[40], fresh[0], fresh[1], R[3],
+                      fresh[2], fresh[3], fresh[1]])
+    probes = torch.as_tensor(rng.integers(0, n, (R_new.shape[0], c)))
+    return R, R_new, probes
+
+
+@pytest.mark.parametrize("maintain", [False, True])
+def test_sharded_burst_on_card_matches_plain_path(nccl1, maintain):
+    """NCCL, one rank: the sharded burst on the card against the buffered
+    burst's plain path on the CPU (flags exact, lists within 1e-6) and
+    against the buffered burst on the card (bit for bit); the maintained
+    lists come from the list_merge kernel."""
+    from repro_torch.core.twinsearch_sharded import onboard_batch_sharded
+    from repro_torch.distributed import local_state
+    from repro_torch.kernels import reset_launch_counts
+    R, R_new, probes = _sharded_case()
+    n = R.shape[0]
+    card = build_state(torch.as_tensor(R, device="cuda"))
+    reset_launch_counts()
+    a = onboard_batch_sharded(local_state(card, 0, 1),
+                              torch.as_tensor(R_new), probes,
+                              s_max=set0_cap(n), maintain=maintain)
+    counts = launch_counts()
+    assert counts["list_merge"] == (1 if maintain else 0)
+    b = onboard_batch_buffered(build_state(torch.as_tensor(R)),
+                               torch.as_tensor(R_new), probes,
+                               s_max=set0_cap(n), maintain=maintain)
+    found = b[2].found
+    assert found.any() and (~found).any()
+    for name in ("found", "twin_idx", "n_candidates", "overflowed"):
+        assert torch.equal(getattr(a[2], name).cpu(), getattr(b[2], name))
+    assert lists_match(b[0].numpy(), b[1].numpy(), a[0].cpu().numpy(),
+                       a[1].cpu().numpy(), 1e-6) is None
+    c = onboard_batch_buffered(card, torch.as_tensor(R_new), probes,
+                               s_max=set0_cap(n), maintain=maintain)
+    assert torch.equal(a[0], c[0]) and torch.equal(a[1], c[1])
+    if maintain:
+        assert a[3][0].is_cuda
+        assert torch.equal(a[3][0], c[3][0])
+        assert torch.equal(a[3][1], c[3][1])
+        assert lists_match(b[3][0].numpy(), b[3][1].numpy(),
+                           a[3][0].cpu().numpy(), a[3][1].cpu().numpy(),
+                           1e-6) is None
+
+
+def test_sharded_burst_collective_bytes_on_card(nccl1, monkeypatch):
+    import torch.distributed as dist
+    from repro_torch.core import twinsearch_sharded as tsh
+    from repro_torch.distributed import local_state
+    R, R_new, probes = _sharded_case()
+    n, c = R.shape[0], probes.shape[1]
+    seen = []
+    for name in ("all_reduce", "all_gather_into_tensor"):
+        def counted(t, *a, _fn=getattr(dist, name), **kw):
+            seen.append(t.numel() * t.element_size())
+            return _fn(t, *a, **kw)
+        monkeypatch.setattr(dist, name, counted)
+    card = build_state(torch.as_tensor(R, device="cuda"))
+    _, _, st = tsh.onboard_batch_sharded(local_state(card, 0, 1),
+                                         torch.as_tensor(R_new), probes,
+                                         s_max=set0_cap(n))
+    branches = ["fallback" if not f else ("base" if t < n else "new")
+                for f, t in zip(st.found.tolist(), st.twin_idx.tolist())]
+    assert "base" in branches and "fallback" in branches
+    assert sum(seen) == sum(tsh.payload_bytes(n, c, b) for b in branches)
+
+
+def test_resilient_burst_on_card_heals_bit_exact(nccl1):
+    from repro_torch.core.twinsearch_sharded import (onboard_batch_resilient,
+                                                     onboard_batch_sharded)
+    from repro_torch.distributed import local_state
+    from repro_torch.serving.guard import RetryPolicy
+    R, R_new, probes = _sharded_case()
+    n = R.shape[0]
+    st = build_state(torch.as_tensor(R, device="cuda"))
+    clean = [t.clone() for t in st[:4]]
+    want = onboard_batch_sharded(local_state(st, 0, 1),
+                                 torch.as_tensor(R_new), probes,
+                                 s_max=set0_cap(n))
+    replicas = ReplicatedArena(st, ReplicationConfig(n_shards=4, r=2))
+    st.sim_vals[5] = float("nan")
+    healed, got = onboard_batch_resilient(
+        st, torch.as_tensor(R_new), probes, s_max=set0_cap(n),
+        replicas=replicas, retry=RetryPolicy(sleep=lambda s: None))
+    assert replicas.repaired_rows == 1
+    for a, b in zip(healed[:4], clean):
+        assert torch.equal(a, b)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,m", [(943, 1682), (300, 77), (4100, 257)])
+def test_build_step_on_card_matches_plain(cuda, dtype, n, m):
+    """The model's build on the similarity kernel against its plain path
+    on the CPU: lists within 1e-5, ids except near-ties; sorted across
+    more than one row slice at n = 4,100."""
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import cf
+    R = _ratings(np.random.default_rng(n), n, m)
+    R[n - 1] = R[2]
+    reset_launch_counts()
+    cv, ci = cf.build_step(torch.as_tensor(R, device="cuda").to(dtype))
+    assert launch_counts()["similarity"] == 1
+    pv, pi = cf.build_step(torch.as_tensor(R).to(dtype))
+    assert cv.dtype == torch.float32 and ci.dtype == torch.int32
+    assert lists_match(pv.numpy(), pi.numpy(), cv.cpu().numpy(),
+                       ci.cpu().numpy(), 1e-5) is None
+
+
+def test_twin_groups_on_card_equal_cpu(cuda):
+    from repro_torch.core import twins_graph as tg
+    rng = np.random.default_rng(5)
+    src = torch.as_tensor(rng.integers(0, 300, 2000))
+    dst = torch.as_tensor(rng.integers(0, 300, 2000))
+    dst[src == 7] = 9
+    for n_hash in (1, 4):
+        a = tg.adjacency_signature(dst.cuda(), src.cuda(), 300, n_hash)
+        b = tg.adjacency_signature(dst, src, 300, n_hash)
+        assert torch.equal(a.cpu(), b)
+        assert torch.equal(tg.twin_groups(a).cpu(), tg.twin_groups(b))
+
+
+def test_gaussian_measures_take_card_tensors(cuda):
+    from repro_torch.core import gaussian
+    rows = torch.rand(4, 500, device="cuda")
+    assert gaussian.empirical_max_sublist(rows[0]) == \
+        gaussian.empirical_max_sublist(rows[0].cpu().numpy())
+    assert gaussian.empirical_set0(rows, rows[:, 3], 0.1) == \
+        gaussian.empirical_set0(rows.cpu().numpy(),
+                                rows[:, 3].cpu().numpy(), 0.1)
