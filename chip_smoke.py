@@ -96,13 +96,34 @@ Phases, in order; the script exits non-zero as soon as a check fails:
                ``build_step`` at ``ml_build`` (943 x 1,682, card against
                CPU), and ``serve_cf`` at its defaults.  Prints
                ``{"cf_family": {...}}``.
- 10. movielens — the same request script at 943 x 1,682 on the card and on
+ 10. recsys  — the recsys family and the training substrate at the
+               registered configs' full widths: (a) xDeepFM serving at
+               serve_p99 (512 rows, 100 timed forwards, held to the plain
+               path on the host within 1e-4) and serve_bulk (262,144 rows
+               in 8 slices of 32,768: one call would hold the CIN's 82 GB
+               intermediate); (b) xDeepFM training at train_batch through
+               ``make_train_step(loss, AdamW(lr=1e-3), accum_steps=8)``,
+               3 steps on ``CTRStream(seed=0)`` (step 0's batch's loss must
+               fall), and a 512-row microbatch's gradient held to the host
+               within 1e-4; (c) ``launch.train.main`` in process, AutoInt
+               at train_batch for 2 steps from zeros with a checkpoint,
+               then ``--resume`` to step 3; (d) two-tower retrieval_cand,
+               1 user against 1,000,000 candidates, top 100, ids held to
+               the host's plain path except at near-ties; (e) the
+               ``embedding_bag`` launches of the xDeepFM half (counts
+               zeroed before the phase, read after (b)): at least one per
+               forward and per training microbatch.  Then the kernel at
+               the path's shapes (512 x 8, 8,192 x 8) timed cold beside its
+               bound, and a serve forward under the profiler.  Prints
+               ``{"recsys": {...}}``.
+ 11. movielens — the same request script at 943 x 1,682 on the card and on
                the CPU (the plain versions), held to the parity tests'
                tolerances.
- 11. summary — ``{"kernels": [...]}`` (all six kernels, each with the
+ 12. summary — ``{"kernels": [...]}`` (all six kernels, each with the
                launches of the phases that drove it: 4, 6, 7, 8 and 9 for
-               the main path's three, 5 for the others), the nvidia-smi
-               line, and last ``{"ok": true, "device": {...}}``.
+               the main path's three, 5 for the others and 10 for
+               ``embedding_bag``), the nvidia-smi line, and last
+               ``{"ok": true, "device": {...}}``.
 
 It imports neither ``jax`` nor the JAX package, and refuses to run (exit 2)
 without a CUDA device or without ``src/repro_torch`` beside it.
@@ -110,6 +131,7 @@ without a CUDA device or without ``src/repro_torch`` beside it.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -147,8 +169,8 @@ API_KERNELS = ("twin_probe", "verify_rows", "embedding_bag")
 # xDeepFM's table and traffic come from ``repro_torch.configs`` (39
 # power-law fields, 60,802,963 rows in all, the first 10M; 10 columns;
 # RECSYS_SHAPES "serve_bulk", 262,144 rows per batch).  The multi-hot
-# field's traffic is the reference's data/recsys_stream.py rule, not
-# ported yet: 8 Zipf(1.3) ids each, valid with probability 0.6.
+# field's traffic is ``data/recsys_stream.py``'s rule: 8 Zipf(1.3) ids
+# each, valid with probability 0.6.
 MULTI_HOT, MULTI_VALID, ZIPF_A = 8, 0.6, 1.3
 # The flush before each cold call: far more than the H100's 50 MB L2, and
 # long enough on the card (~0.7 ms) that the host has enqueued the call
@@ -990,6 +1012,21 @@ def durability_stream(R_host) -> tuple[list, list]:
     return stream, list(zip(items.tolist(), values.tolist()))
 
 
+def roomy_tmpdir(prefix: str) -> str:
+    """A new temporary directory where there is more room: the system's
+    temporary directory or the checkout's build directory."""
+    import shutil
+    import tempfile
+    places = [Path(tempfile.gettempdir()), ROOT / "build"]
+    for place in places:
+        place.mkdir(parents=True, exist_ok=True)
+        u = shutil.disk_usage(place)
+        log(f"  {place}: {u.free / 1e9:.1f} GB free of {u.total / 1e9:.1f} "
+            "GB")
+    place = max(places, key=lambda p: shutil.disk_usage(p).free)
+    return tempfile.mkdtemp(prefix=prefix, dir=place)
+
+
 def run_durability(torch, dev, R_host, sync_rotation_ms: float) -> dict:
     """A durable server at Douban width: WAL (fsync on) and checkpoints on
     local disk, incremental rotation in 4,096-row slices, add_ratings on
@@ -999,7 +1036,6 @@ def run_durability(torch, dev, R_host, sync_rotation_ms: float) -> dict:
     times are the servers' own ``ServerStats``; the plan's merge is held
     to the plain path on its own inputs afterwards."""
     import shutil
-    import tempfile
     import zlib
     import numpy as np
     from repro_torch.bridge import FIELDS
@@ -1010,16 +1046,7 @@ def run_durability(torch, dev, R_host, sync_rotation_ms: float) -> dict:
 
     capacity = N_USERS + CAPACITY_EXTRA
     arena_bytes = capacity * (DOUBAN_ITEMS + 1 + 2 * capacity) * 4
-    # The temporary directory goes where there is more room: the system's
-    # temporary directory or the checkout's build directory.
-    places = [Path(tempfile.gettempdir()), ROOT / "build"]
-    for place in places:
-        place.mkdir(parents=True, exist_ok=True)
-        u = shutil.disk_usage(place)
-        log(f"  {place}: {u.free / 1e9:.1f} GB free of {u.total / 1e9:.1f} "
-            "GB")
-    place = max(places, key=lambda p: shutil.disk_usage(p).free)
-    root = tempfile.mkdtemp(prefix="chip_smoke_durability_", dir=place)
+    root = roomy_tmpdir("chip_smoke_durability_")
     try:
         check(shutil.disk_usage(root).free > 2.2 * arena_bytes,
               f"room in {root} for two {arena_bytes / 1e9:.2f} GB "
@@ -1094,7 +1121,8 @@ def run_durability(torch, dev, R_host, sync_rotation_ms: float) -> dict:
     s = stats["summary"]
     plain_adds = [ms for ms, init in add_ms if not init]
     metrics = {
-        "users": N_USERS, "items": DOUBAN_ITEMS, "dir": str(place),
+        "users": N_USERS, "items": DOUBAN_ITEMS,
+        "dir": str(Path(root).parent),
         "checkpoint_gb": [b / 1e9 for b in save_bytes],
         "checkpoint_save_s": save_s,
         "checkpoint_save_gb_s": [b / 1e9 / t for b, t in zip(save_bytes,
@@ -2068,7 +2096,559 @@ def check_serve_cf(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 10: MovieLens shape, card against CPU
+# Phase 10: the recsys family and the training substrate
+# ---------------------------------------------------------------------------
+
+# serve_bulk runs in slices: one call would hold the CIN's (262,144,
+# 200·39, 10) f32 intermediate, 82 GB, on an 80 GB card.
+BULK_SLICES = 8
+SERVE_CALLS = 100
+# train_batch (65,536 rows) in 8 microbatches of 8,192: the saved CIN
+# intermediates of the whole batch alone would come to about 45 GB.
+TRAIN_STEPS, ACCUM_STEPS = 3, 8
+GRAD_CHECK_ROWS = 512
+# The gradient check's bound, |card - host| <= GRAD_ATOL + GRAD_RTOL·|host|
+# element by element: sound runs read at most 3.2e-8 (PERF.md, PR 18).
+GRAD_ATOL, GRAD_RTOL = 2e-7, 1e-5
+# serve_bulk rows held to the host: the first and the last this many.
+BULK_CHECK_ROWS = 512
+RETRIEVE_CALLS, RETRIEVE_TOP = 5, 100
+
+
+def to_device(torch, batch: dict, dev) -> dict:
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def host_copy(torch, tree):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.detach().cpu(), tree)
+
+
+def recsys_serve(torch, dev, spec, params, calls: dict) -> dict:
+    """xDeepFM at serve_p99 (512 rows): 100 timed forwards after a warm-up;
+    then serve_bulk (262,144 rows) in ``BULK_SLICES`` slices.  The serve
+    logits, and the bulk's first and last ``BULK_CHECK_ROWS`` (of its first
+    and last slice), held to the plain path on the host (params copied off
+    the card) within atol = rtol = 1e-4."""
+    import numpy as np
+    from repro_torch.data import CTRStream
+    from repro_torch.models import recsys as rec
+    cfg = spec.config
+    B = spec.shape("serve_p99").dim("batch")
+    host = CTRStream(cfg, B, seed=SEED + 50)(0)
+    host.pop("label")
+    batch = to_device(torch, host, dev)
+    times = []
+    with torch.no_grad():
+        for _ in range(SERVE_CALLS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = rec.forward(params, batch, cfg)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    calls["forwards"] += SERVE_CALLS + 1
+    times = times[1:]                    # the first call warmed up
+
+    n = spec.shape("serve_bulk").dim("batch")
+    sl = n // BULK_SLICES
+    bulk_host = CTRStream(cfg, n, seed=SEED + 51)(0)
+    bulk_host.pop("label")
+    bulk = to_device(torch, bulk_host, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        outs = [rec.forward(params, {k: v[i * sl:(i + 1) * sl]
+                                     for k, v in bulk.items()}, cfg)
+                for i in range(BULK_SLICES)]
+    torch.cuda.synchronize()
+    bulk_s = time.perf_counter() - t0
+    calls["forwards"] += BULK_SLICES
+    out = torch.cat(outs)
+    del outs, bulk
+    check(out.shape == (n,) and bool(torch.isfinite(out).all()),
+          f"xDeepFM serve_bulk: {n} finite logits in {BULK_SLICES} slices "
+          f"of {sl}")
+
+    t0 = time.perf_counter()
+    cpu_params = host_copy(torch, params)
+    copy_s = time.perf_counter() - t0
+    k = BULK_CHECK_ROWS
+    ends = {key: np.concatenate([v[:k], v[n - k:]])
+            for key, v in bulk_host.items()}
+    errs = {}
+    for name, got, rows in (("serve_p99", logits.cpu(), host),
+                            ("serve_bulk", torch.cat([out[:k], out[n - k:]]
+                                                     ).cpu(), ends)):
+        with torch.no_grad():
+            plain = rec.forward(cpu_params, to_device(torch, rows, "cpu"),
+                                cfg)
+        errs[name] = float((got - plain).abs().max())
+        check(bool(torch.isfinite(got).all()) and got.shape == plain.shape
+              and bool(((got - plain).abs()
+                        <= 1e-4 + 1e-4 * plain.abs()).all()),
+              f"xDeepFM {name} logits ({got.shape[0]} rows) on the card = "
+              f"the plain path on the host within atol = rtol = 1e-4 (max "
+              f"diff {errs[name]:.3g})")
+    del cpu_params
+    err = errs["serve_p99"]
+    m = {"serve_rows": B, "serve_p50_ms": statistics.median(times),
+         "serve_p99_ms": pct(times, 0.99), "serve_max_ms": max(times),
+         "serve_max_abs_err": err, "params_to_host_s": copy_s,
+         "bulk_rows": n, "bulk_slices": BULK_SLICES, "bulk_s": bulk_s,
+         "bulk_rows_per_s": n / bulk_s, "bulk_checked_rows": 2 * k,
+         "bulk_max_abs_err": errs["serve_bulk"]}
+    log(f"  serve_p99 ({B} rows): p50 {m['serve_p50_ms']:.3f} ms, p99 "
+        f"{m['serve_p99_ms']:.3f} ms; card vs host max diff {err:.3g} "
+        f"(params to host {copy_s:.2f} s); serve_bulk {n} rows in "
+        f"{bulk_s * 1e3:.1f} ms ({m['bulk_rows_per_s']:.0f} rows/s; "
+        f"{2 * k} rows vs host max diff {errs['serve_bulk']:.3g})")
+    return m
+
+
+def recsys_train(torch, dev, spec, params, calls: dict) -> tuple:
+    """xDeepFM at train_batch: ``make_train_step(loss, AdamW(lr=1e-3),
+    accum_steps=8)`` for ``TRAIN_STEPS`` steps on ``CTRStream(seed=0)``
+    batches, from the seeded weights.  Returns (metrics, params)."""
+    from repro_torch.data import CTRStream
+    from repro_torch.launch.steps import recsys_model_flops
+    from repro_torch.models import recsys as rec
+    from repro_torch.training import AdamW, make_train_step
+    cfg = spec.config
+    shape = spec.shape("train_batch")
+    stream = CTRStream(cfg, shape.dim("batch"), seed=0)
+    opt = AdamW(lr=1e-3)
+    state = opt.init(params)
+    step = make_train_step(lambda p, b: rec.loss(p, b, cfg), opt,
+                           accum_steps=ACCUM_STEPS)
+    losses, step_s, data_s = [], [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        batch = to_device(torch, stream(i), dev)
+        torch.cuda.synchronize()
+        data_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        params, state, _, met = step(params, state, None, batch)
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        calls["microbatches"] += ACCUM_STEPS
+    del state
+    # Each step's loss is on its own batch; the fall is read on one batch:
+    # step 0's, whose loss at the initial weights is losses[0], again after
+    # the last step (a forward in the microbatches' slices).
+    batch = to_device(torch, stream(0), dev)
+    n = shape.dim("batch") // ACCUM_STEPS
+    with torch.no_grad():
+        after = sum(float(rec.loss(params, {k: v[i * n:(i + 1) * n]
+                                            for k, v in batch.items()}, cfg))
+                    for i in range(ACCUM_STEPS)) / ACCUM_STEPS
+    calls["forwards"] += ACCUM_STEPS
+    del batch
+    check(all(math.isfinite(x) for x in losses + [after])
+          and after < losses[0],
+          f"xDeepFM training: losses finite ({[round(x, 5) for x in losses]}"
+          f"), and step 0's batch's loss fell from {losses[0]:.5f} to "
+          f"{after:.5f} over the {TRAIN_STEPS} steps")
+    s = statistics.mean(step_s[1:])      # the first step warmed up
+    flops = recsys_model_flops(cfg, shape)
+    m = {"train_rows": shape.dim("batch"), "accum_steps": ACCUM_STEPS,
+         "train_losses": losses, "batch0_loss_after": after,
+         "train_step_s": step_s,
+         "train_s_per_step": s, "train_samples_per_s": shape.dim("batch") / s,
+         "train_model_flops": flops, "train_tflops": flops / s / 1e12,
+         "train_fp32_peak_share": flops / s / FP32_FLOPS_PER_S,
+         "train_data_s": data_s}
+    log(f"  train_batch ({shape.dim('batch')} rows, {ACCUM_STEPS} "
+        f"microbatches): {s:.3f} s/step (steps {[round(x, 3) for x in step_s]}"
+        f"), {m['train_samples_per_s']:.0f} samples/s, "
+        f"{m['train_tflops']:.2f} TFLOP/s of useful work "
+        f"({100 * m['train_fp32_peak_share']:.1f}% of 67 TFLOP/s fp32); "
+        f"losses {losses}")
+    return m, params
+
+
+# Faults planted in the bag's backward on the card, each of which the
+# gradient check must see: the masked-off slots' rows added too, and the
+# table gradient 0.1% too large.
+PLANTED_FAULTS = ("mask dropped", "scaled by 1.001")
+
+
+def planted_bag_backward(torch, sound, kind: str):
+    """The sound ``_BagSum.backward`` with the fault ``kind`` on CUDA
+    tensors (the host's plain path stays sound); installed and removed by
+    ``recsys_grad_check``."""
+
+    def backward(ctx, grad):
+        g, a, b = sound(ctx, grad)
+        if not grad.is_cuda:
+            return g, a, b
+        if kind == "scaled by 1.001":
+            return g * 1.001, a, b
+        idx, mask = ctx.saved_tensors
+        bags, slots = torch.nonzero(mask == 0, as_tuple=True)
+        g.index_add_(0, idx[bags, slots].long().clamp(0, g.shape[0] - 1),
+                     grad[bags])
+        return g, a, b
+    return backward
+
+
+def recsys_grad_check(torch, dev, spec, params, calls: dict) -> dict:
+    """One 512-row microbatch's gradient on the card (the bag's backward
+    included) against the plain path's on the host, on the same weights:
+    the table rows the batch touched, ``lin_table``'s, ``dense_w`` and
+    ``cin[0]``, each element within ``GRAD_ATOL + GRAD_RTOL·|host|``, and
+    no gradient on a row it did not touch.  Then the same on the card with
+    each of ``PLANTED_FAULTS`` in the bag's backward: the check must fail
+    on each, so the bound is shown to see a dropped mask and a 0.1% scale
+    error at this size."""
+    import numpy as np
+    from repro_torch.data import CTRStream
+    from repro_torch.models import recsys as rec
+    from repro_torch.models.embedding import _BagSum, field_offsets
+    from repro_torch.training.train_loop import value_and_grad
+    cfg = spec.config
+    host = CTRStream(cfg, GRAD_CHECK_ROWS, seed=SEED + 52)(0)
+    rows = np.unique(np.concatenate([
+        (host["sparse_idx"] + field_offsets(cfg.field_vocab_sizes)).ravel(),
+        host["multi_idx"].ravel()]))
+    rows_t = torch.as_tensor(rows, dtype=torch.long)
+
+    def loss_fn(p, b):
+        return rec.loss(p, b, cfg)
+
+    def on_card():
+        loss, g = value_and_grad(loss_fn, params, to_device(torch, host,
+                                                            dev))
+        calls["microbatches"] += 1
+        nz = torch.nonzero(g["table"].abs().sum(dim=1)).flatten().cpu()
+        picked = {"table": g["table"][rows_t.to(dev)].cpu(),
+                  "lin_table": g["lin_table"][rows_t.to(dev)].cpu(),
+                  "dense_w": g["dense_w"].cpu(), "cin0": g["cin"][0].cpu()}
+        return loss, picked, nz
+
+    def shares(card):
+        """The largest share of its bound that an element's difference
+        takes, for each leaf."""
+        return {k: float(((card[k] - plain[k]).abs()
+                          / (GRAD_ATOL + GRAD_RTOL * plain[k].abs())).max())
+                for k in card}
+
+    l_card, card, nz = on_card()
+    cpu_params = host_copy(torch, params)
+    l_cpu, g_cpu = value_and_grad(loss_fn, cpu_params,
+                                  to_device(torch, host, "cpu"))
+    plain = {"table": g_cpu["table"][rows_t],
+             "lin_table": g_cpu["lin_table"][rows_t],
+             "dense_w": g_cpu["dense_w"], "cin0": g_cpu["cin"][0]}
+    del cpu_params, g_cpu
+    errs = {k: float((card[k] - plain[k]).abs().max()) for k in card}
+    scale = {k: float(plain[k].abs().max()) for k in card}
+    share = shares(card)
+    check(all(x <= 1.0 for x in share.values())
+          and abs(float(l_card) - float(l_cpu)) <= 1e-5,
+          f"xDeepFM gradient of a {GRAD_CHECK_ROWS}-row microbatch on the "
+          f"card = the plain path on the host, each element within "
+          f"{GRAD_ATOL:g} + {GRAD_RTOL:g}·|host| ({len(rows)} touched rows; "
+          f"max diffs {errs}; largest share of the bound {share}; max "
+          f"|host| {scale}; loss {float(l_card):.6f} vs {float(l_cpu):.6f})")
+    check(bool(np.isin(nz.numpy(), rows).all()),
+          f"no table gradient outside the {len(rows)} touched rows "
+          f"({nz.numel()} rows with one)")
+    planted = {}
+    sound = _BagSum.__dict__["backward"]
+    try:
+        for kind in PLANTED_FAULTS:
+            _BagSum.backward = staticmethod(planted_bag_backward(
+                torch, sound.__func__, kind))
+            planted[kind] = shares(on_card()[1])
+    finally:
+        _BagSum.backward = sound
+    check(all(p["table"] > 1.0 for p in planted.values()),
+          f"the gradient check sees each planted fault in the bag's "
+          f"backward on the card (largest share of the bound: {planted})")
+    return {"grad_check_rows": GRAD_CHECK_ROWS, "grad_touched_rows":
+            int(len(rows)), "grad_max_abs_err": errs,
+            "grad_bound_share": share, "grad_host_max_abs": scale,
+            "grad_planted_share": planted}
+
+
+def bag_at_path_shapes(torch, table, inputs: dict, flush) -> dict:
+    """``ops.embedding_bag`` as xDeepFM calls it (bool mask, no weights) at
+    each of the path's shapes: bit for bit to its plain version, and cold
+    times beside the plain version's, ``F.embedding_bag``'s and the bound
+    (each distinct row read once, ids, mask and output once; a multiply
+    and an add per slot and column)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    dim = table.shape[1]
+    out = {}
+    for name, (idx, mask) in inputs.items():
+        B, hot = idx.shape
+        w = mask.float()
+        got = embedding_bag(table, idx, mask=mask)
+        plain = embedding_bag_ref(table, idx.long(), w)
+        check(torch.equal(got, plain), f"embedding_bag at the path's {name} "
+              f"shape ({B} x {hot}) bit-identical to the plain version")
+        rows = int(torch.unique(idx).numel())
+        b_ms, b_by = bound(4.0 * rows * dim + 5.0 * B * hot + 4.0 * B * dim,
+                           2.0 * B * hot * dim)
+        ms = cold_ms(lambda: embedding_bag(table, idx, mask=mask), 20, flush)
+        plain_ms = cold_ms(lambda: embedding_bag_ref(table, idx.long(), w),
+                           20, flush)
+        lib_ms = cold_ms(lambda: F.embedding_bag(
+            idx, table, mode="sum", per_sample_weights=w), 20, flush)
+        out[name] = {"shape": [B, hot], "distinct_rows": rows, "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": b_ms, "bound_by": b_by}
+        log(f"  embedding_bag at {name} ({B} x {hot}, {rows} distinct "
+            f"rows): {ms:.4f} ms cold, plain {plain_ms:.4f} ms, "
+            f"F.embedding_bag {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    return out
+
+
+def recsys_launcher(torch) -> dict:
+    """``launch.train.main`` in process: AutoInt at train_batch for 2 steps
+    with a checkpoint, then ``--resume`` to step 3.  It starts from zeros,
+    as the reference launcher does, so it checks that the entry point runs,
+    checkpoints and resumes (the loss stays ln 2)."""
+    import logging
+    import shutil
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.configs import get_arch
+    from repro_torch.training import checkpoint
+    from repro_torch.tree import leaves
+    spec = get_arch("autoint")
+    cell = build_cell(spec, spec.shape("train_batch"))
+    ckpt_bytes = sum(t.numel() * t.element_size()
+                     for t in leaves(cell.args[:2]))
+    del cell
+    root = roomy_tmpdir("chip_smoke_train_")
+    try:
+        check(shutil.disk_usage(root).free > 2.2 * ckpt_bytes,
+              f"room in {root} for two {ckpt_bytes / 1e9:.2f} GB "
+              "checkpoints")
+        args = ["--arch", "autoint", "--shape", "train_batch", "--ckpt",
+                root, "--device", DEVICE]
+        t0 = time.perf_counter()
+        out = launcher.main(args + ["--steps", "2"])
+        first_s = time.perf_counter() - t0
+        hist, step = out[2], int(out[1].step)
+        del out
+        torch.cuda.empty_cache()
+        check(len(hist) == 2 and step == 2
+              and checkpoint.latest_step(root) == 2,
+              f"launcher ran 2 AutoInt steps and checkpointed step 2 "
+              f"({first_s:.1f} s; losses {hist})")
+        t0 = time.perf_counter()
+        out = launcher.main(args + ["--steps", "3", "--resume"])
+        resume_s = time.perf_counter() - t0
+        hist2, step2 = out[2], int(out[1].step)
+        del out
+        torch.cuda.empty_cache()
+        check(len(hist2) == 1 and step2 == 3
+              and checkpoint.latest_step(root) == 3,
+              f"launcher --resume restored step 2, ran step 3 and "
+              f"checkpointed it ({resume_s:.1f} s; losses {hist2})")
+        check(all(abs(x - math.log(2.0)) <= 1e-6 for x in hist + hist2),
+              "from zeros the AutoInt loss stays ln 2, as the reference "
+              "launcher's")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        logging.getLogger().setLevel(logging.WARNING)
+    return {"launcher_arch": "autoint", "launcher_ckpt_gb": ckpt_bytes / 1e9,
+            "launcher_first_s": first_s, "launcher_resume_s": resume_s,
+            "launcher_losses": hist + hist2}
+
+
+def recsys_retrieval(torch, dev) -> dict:
+    """Two-tower retrieval_cand: 1 user against 1,000,000 distinct
+    candidates, top 100, timed; the same candidates' rows, copied to the
+    host, through the plain path there: scores within 1e-5, ids exact
+    except at near-ties."""
+    import numpy as np
+    from repro_torch.bridge import ranked_match
+    from repro_torch.configs import get_arch
+    from repro_torch.models import recsys as rec
+    from repro_torch.tree import leaves
+    spec = get_arch("two-tower-retrieval")
+    cfg = spec.config
+    shape = spec.shape("retrieval_cand")
+    B, C = shape.dim("batch"), shape.dim("n_candidates")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 53)
+    t0 = time.perf_counter()
+    params = rec.init_params(gen, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params_gb = sum(t.numel() * t.element_size()
+                    for t in leaves(params)) / 1e9
+    rng = np.random.default_rng(SEED + 54)
+    fv = cfg.field_vocab_sizes
+    host = {"user_id": rng.integers(0, cfg.user_vocab, B).astype(np.int32),
+            "user_fields": np.stack([rng.integers(0, v, B) for v in fv[:4]],
+                                    axis=1).astype(np.int32),
+            "cand_ids": rng.choice(cfg.item_vocab, C,
+                                   replace=False).astype(np.int32),
+            "cand_fields": np.stack([rng.integers(0, v, C)
+                                     for v in fv[4:6]], axis=1
+                                    ).astype(np.int32)}
+    batch = to_device(torch, host, dev)
+    times = []
+    with torch.no_grad():
+        for _ in range(RETRIEVE_CALLS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vals, ids = rec.retrieve(params, batch, cfg, top_k=RETRIEVE_TOP)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        times = times[1:]
+        cpu_params = host_copy(torch, {
+            "user_table": params["user_table"][batch["user_id"].long()],
+            "item_table": params["item_table"][batch["cand_ids"].long()],
+            "field_table": params["field_table"],
+            "user_mlp": params["user_mlp"], "item_mlp": params["item_mlp"],
+            "log_tau": params["log_tau"]})
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    cpu_batch = {"user_id": torch.arange(B, dtype=torch.int32),
+                 "user_fields": torch.as_tensor(host["user_fields"]),
+                 "cand_ids": torch.arange(C, dtype=torch.int32),
+                 "cand_fields": torch.as_tensor(host["cand_fields"])}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        pv, pi = rec.retrieve(cpu_params, cpu_batch, cfg, top_k=RETRIEVE_TOP)
+    plain_s = time.perf_counter() - t0
+    why = ranked_match(pv.numpy(), pi.numpy(), vals.cpu().numpy(),
+                       ids.cpu().numpy(), 1e-5)
+    exact = bool(torch.equal(pi, ids.cpu()))
+    check(why is None, f"two-tower retrieval: top {RETRIEVE_TOP} of {C} "
+          f"on the card = the plain path on the host (scores within 1e-5, "
+          f"ids exact but for near-ties; ids identical: {exact}) ({why})")
+    m = {"retrieval_candidates": C, "retrieval_top": RETRIEVE_TOP,
+         "retrieval_ms": statistics.median(times), "retrieval_ms_all": times,
+         "retrieval_ids_identical": exact, "retrieval_plain_s": plain_s,
+         "retrieval_params_gb": params_gb, "retrieval_init_s": init_s,
+         "retrieval_peak_gb": peak / 1e9}
+    log(f"  retrieval_cand: {m['retrieval_ms']:.2f} ms (median of "
+        f"{RETRIEVE_CALLS}; {[round(t, 2) for t in times]}), params "
+        f"{params_gb:.2f} GB drawn in {init_s:.2f} s, ids identical to the "
+        f"host's: {exact}; peak {peak / 1e9:.2f} GB")
+    return m
+
+
+def peak_gb(torch, metrics: dict) -> float:
+    """The peak device memory since the last reset, in GB; resets it and
+    notes what is still allocated (``metrics["allocated_gb"]``)."""
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    metrics.setdefault("allocated_gb", []).append(
+        torch.cuda.memory_allocated() / 1e9)
+    torch.cuda.reset_peak_memory_stats()
+    return peak
+
+
+def run_recsys(torch, dev) -> dict:
+    """The recsys family and the training substrate at the registered
+    configs' full widths (``repro_torch.configs``): (a) xDeepFM serving,
+    (b) xDeepFM training with its gradient checked, (c) the launcher in
+    process, (d) two-tower retrieval; (e) the ``embedding_bag`` launches of
+    the xDeepFM half (counts zeroed before the phase, read after (b), the
+    only part that runs a bag): one per forward and per training
+    microbatch, exactly.  Then the kernel at the path's three shapes, held
+    bit for bit to its plain version and timed."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import CTRStream
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import recsys as rec
+    from repro_torch.tree import leaves
+    t_phase = time.perf_counter()
+    spec = get_arch("xdeepfm")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    calls = {"forwards": 0, "microbatches": 0}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 49)
+    t0 = time.perf_counter()
+    params = rec.init_params(gen, spec.config)
+    torch.cuda.synchronize()
+    metrics = {"xdeepfm_init_s": time.perf_counter() - t0,
+               "xdeepfm_params_gb": sum(
+                   t.numel() * t.element_size()
+                   for t in leaves(params)) / 1e9}
+    log(f"  xDeepFM params {metrics['xdeepfm_params_gb']:.2f} GB drawn on "
+        f"the card in {metrics['xdeepfm_init_s']:.2f} s")
+    metrics.update(recsys_serve(torch, dev, spec, params, calls))
+    serve_launches = launch_counts()["embedding_bag"]
+    serve_forwards = calls["forwards"]
+    metrics["serve_peak_gb"] = peak_gb(torch, metrics)
+    train, params = recsys_train(torch, dev, spec, params, calls)
+    metrics.update(train)
+    metrics["train_peak_gb"] = peak_gb(torch, metrics)
+    metrics.update(recsys_grad_check(torch, dev, spec, params, calls))
+    counts = launch_counts()
+    need = calls["forwards"] + calls["microbatches"]
+    check(counts["embedding_bag"] == need
+          and serve_launches == serve_forwards,
+          f"embedding_bag launched {counts['embedding_bag']} times in the "
+          f"xDeepFM half ({serve_launches} while serving): once per "
+          f"forward ({calls['forwards']}, {serve_forwards} of them "
+          f"serving) and per training microbatch ({calls['microbatches']})")
+    metrics["embedding_bag_launches"] = counts["embedding_bag"]
+    metrics["calls"] = dict(calls)
+
+    cfg = spec.config
+    serve = CTRStream(cfg, spec.shape("serve_p99").dim("batch"),
+                      seed=SEED + 50)(0)
+    micro = spec.shape("train_batch").dim("batch") // ACCUM_STEPS
+    train0 = CTRStream(cfg, spec.shape("train_batch").dim("batch"),
+                       seed=0)(0)
+    n_bulk = spec.shape("serve_bulk").dim("batch")
+    bulk0 = CTRStream(cfg, n_bulk, seed=SEED + 51)(0)
+    inputs = {name: (torch.as_tensor(b["multi_idx"][:n], device=dev),
+                     torch.as_tensor(b["multi_mask"][:n], device=dev))
+              for name, b, n in (("serve_p99", serve, len(serve["label"])),
+                                 ("train microbatch", train0, micro),
+                                 ("serve_bulk slice", bulk0,
+                                  n_bulk // BULK_SLICES))}
+    del train0, bulk0
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+    metrics["bag_path"] = bag_at_path_shapes(torch, params["table"], inputs,
+                                             scratch.zero_)
+    log("  an xDeepFM serve_p99 forward under the profiler:")
+    batch = to_device(torch, {k: v for k, v in serve.items()
+                              if k != "label"}, dev)
+    with torch.no_grad():
+        metrics["serve_profile"] = device_share(
+            torch, lambda: rec.forward(params, batch, cfg), 5)
+    del batch
+    metrics["grad_check_peak_gb"] = peak_gb(torch, metrics)
+    metrics["xdeepfm_peak_gb"] = max(metrics[k] for k in (
+        "serve_peak_gb", "train_peak_gb", "grad_check_peak_gb"))
+    del params, scratch, inputs
+    torch.cuda.empty_cache()
+
+    peak_gb(torch, metrics)
+    metrics.update(recsys_launcher(torch))
+    metrics["launcher_peak_gb"] = peak_gb(torch, metrics)
+    torch.cuda.empty_cache()
+    metrics.update(recsys_retrieval(torch, dev))
+    peak_gb(torch, metrics)
+    torch.cuda.empty_cache()
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    log(f"  embedding_bag launches {counts['embedding_bag']} "
+        f"({calls}); peaks: serve {metrics['serve_peak_gb']:.2f} GB, train "
+        f"{metrics['train_peak_gb']:.2f} GB, gradient check "
+        f"{metrics['grad_check_peak_gb']:.2f} GB, launcher "
+        f"{metrics['launcher_peak_gb']:.2f} GB, retrieval "
+        f"{metrics['retrieval_peak_gb']:.2f} GB (still allocated after "
+        f"each: {[round(x, 2) for x in metrics['allocated_gb']]} GB); "
+        f"phase {metrics['phase_s']:.1f} s")
+    return metrics
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: MovieLens shape, card against CPU
 # ---------------------------------------------------------------------------
 
 def movielens_script(torch, device: str):
@@ -2224,16 +2804,23 @@ def main() -> int:
         cf_family = run_cf_family(torch, dev, R_host, buffered["burst_ms"])
         torch.cuda.empty_cache()
 
-        log("== 10. MovieLens shape, card against CPU")
+        log("== 10. recsys family and training substrate")
+        recsys = run_recsys(torch, dev)
+        torch.cuda.empty_cache()
+
+        log("== 11. MovieLens shape, card against CPU")
         run_movielens(torch)
 
-        log("== 11. summary")
+        log("== 12. summary")
         main_phases = (server, durability, replication, buffered, cf_family)
         kernels = []
         for kname in MAIN_PATH + API_KERNELS:
             e = dict(entries[kname])
             e["launches"] = (sum(ph["launches"][kname] for ph in main_phases)
                              if kname in MAIN_PATH else api_launches[kname])
+            if kname == "embedding_bag":
+                e["launches"] += recsys["embedding_bag_launches"]
+                e["recsys_path"] = recsys["bag_path"]
             if kname == "list_merge":
                 e["plan_merge"] = durability["plan_merge"]
             if kname == "similarity":
@@ -2246,6 +2833,7 @@ def main() -> int:
         print(json.dumps({"replication": replication}))
         print(json.dumps({"buffered": buffered}))
         print(json.dumps({"cf_family": cf_family}))
+        print(json.dumps({"recsys": recsys}))
         print(json.dumps({"kernels": kernels}))
         print(nvidia_smi_line())
         print(json.dumps({"ok": True, "device": {

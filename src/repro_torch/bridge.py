@@ -1,7 +1,9 @@
-"""Carry a ``CFState`` between the JAX reference and the port.
+"""Carry a ``CFState``, and trees of model weights, between the JAX
+reference and the port.
 
 The JAX ``CFState`` crosses as a dict of numpy arrays (``ratings``,
-``norms``, ``sim_vals``, ``sim_idx``, ``n_active``), so neither package
+``norms``, ``sim_vals``, ``sim_idx``, ``n_active``), and a tree of weights
+or optimizer state as the same nest of numpy arrays, so neither package
 imports the other.  ``lists_match`` is the tolerance contract for sorted
 similarity lists built by two implementations.
 """
@@ -12,6 +14,7 @@ import torch
 
 from repro_torch.core.types import (SENTINEL, SENTINEL_GATE, CFState,
                                     require_device)
+from repro_torch.tree import tree_map
 
 FIELDS = ("ratings", "norms", "sim_vals", "sim_idx", "n_active")
 
@@ -42,6 +45,36 @@ def state_to_numpy(state) -> dict:
             "sim_vals": state.sim_vals.cpu().numpy().copy(),
             "sim_idx": state.sim_idx.cpu().numpy().copy(),
             "n_active": np.int32(state.n_active)}
+
+
+def params_from_numpy(tree, device: str | torch.device = "cuda"):
+    """A nest of dicts, lists, tuples and NamedTuples of numpy arrays (or
+    anything ``np.asarray`` takes: JAX arrays, scalars) -> the same nest of
+    tensors on ``device``, the card unless the caller asks for the CPU.
+    Each leaf is copied; a bfloat16 array stays bfloat16.  A NamedTuple
+    keeps its own type: wrap it in the port's (``AdamWState(*tree)``)."""
+    device = require_device(device, "params_from_numpy")
+
+    def one(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.tensor(a.astype(np.float32),
+                                device=device).to(torch.bfloat16)
+        return torch.tensor(a, device=device)
+
+    return tree_map(one, tree)
+
+
+def params_to_numpy(tree):
+    """A nest of tensors -> the same nest of numpy arrays (host copies;
+    bfloat16 as float32, which holds every bfloat16 value exactly)."""
+    def one(t):
+        t = t.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.cpu().numpy().copy()
+
+    return tree_map(one, tree)
 
 
 def _dense(vals: np.ndarray, idx: np.ndarray) -> np.ndarray:

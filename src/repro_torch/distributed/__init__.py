@@ -4,7 +4,8 @@ from repro_torch.distributed.replication import (ReplicaState,
                                                  ReplicatedArena,
                                                  ReplicationConfig)
 from repro_torch.distributed.sharding import (cf_shardings, local_state,
+                                              recsys_shardings,
                                               shard_row_slice)
 
-__all__ = ["cf_shardings", "ReplicaState", "ReplicatedArena",
-           "ReplicationConfig"]
+__all__ = ["cf_shardings", "recsys_shardings", "ReplicaState",
+           "ReplicatedArena", "ReplicationConfig"]

@@ -9,16 +9,20 @@ that rule.  An arena whose rows the world size does not divide is refused:
 the reference's ``rows_loc = N_base // n_shards`` would drop the last rows,
 and ``shard_map`` refuses such a split.
 
+``recsys_shardings`` names the same for the recsys family: the embedding
+tables by rows, everything else replicated.
+
 ``shard_row_slice`` is the fault harness's split, where the last shard
 takes any remainder.  The mesh-only names of the reference module
-(``MeshAxes``, ``named``, ``zero_extend``, the LM, GNN and recsys rules)
-come with the models that use them.
+(``MeshAxes``, ``named``, ``zero_extend``, the LM and GNN rules) come with
+the models that use them.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 from repro_torch.core.types import CFState
+from repro_torch.tree import tree_map
 
 
 def shard_row_slice(n_rows: int, n_shards: int, shard: int) -> slice:
@@ -95,3 +99,37 @@ def local_state(state: CFState, rank: int, world_size: int) -> CFState:
     return CFState(ratings=state.ratings[sl], norms=state.norms[sl],
                    sim_vals=state.sim_vals[sl], sim_idx=state.sim_idx[sl],
                    n_active=n_loc)
+
+
+# The recsys family's embedding tables (``models.recsys``).  Each has at
+# least 2**16 rows in every registered config, the reference's threshold
+# for row sharding, and its rows are padded to 512 (``pad_to_shard``).
+RECSYS_TABLES = ("table", "lin_table", "item_table", "other_table",
+                 "user_table", "field_table")
+# The recsys inputs; each splits by rows of the batch.
+_RECSYS_INPUTS = ("sparse_idx", "dense", "multi_idx", "multi_mask", "hist",
+                  "target", "label", "user_id", "user_fields", "item_id",
+                  "item_fields")
+
+
+def recsys_shardings(cfg, world_size: int, kind: str, params) -> dict:
+    """Which rows of each leaf a rank holds for the recsys step ``kind``:
+    ``{"params": <params' structure>, "inputs": {name: rule}}``.
+
+    Params: the embedding tables (``RECSYS_TABLES``) by even row slices,
+    every other leaf replicated.  Inputs: by rows of the batch; for the
+    two-tower ``retrieval`` kind the candidates (``cand_ids``,
+    ``cand_fields``) by rows and the user replicated.  ``cfg`` is a
+    ``RecsysConfig``; ``params`` may hold ``meta`` tensors."""
+    if world_size < 1:
+        raise ValueError(f"world_size must be >= 1, got {world_size}")
+    rows = Rows(world_size)
+    spec = {k: (tree_map(lambda _: rows, v) if k in RECSYS_TABLES
+                else tree_map(lambda _: Replicated(), v))
+            for k, v in params.items()}
+    if cfg.variant == "two_tower" and kind == "retrieval":
+        inputs = {"user_id": Replicated(), "user_fields": Replicated(),
+                  "cand_ids": rows, "cand_fields": rows}
+    else:
+        inputs = {k: rows for k in _RECSYS_INPUTS}
+    return {"params": spec, "inputs": inputs}

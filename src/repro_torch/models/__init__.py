@@ -1,5 +1,5 @@
-"""Model families of the port.  Only the CF family is here; the LM, MoE,
-GNN and recsys models come after it."""
-from repro_torch.models import cf
+"""Model families of the port: the CF family and the recsys family with
+their building blocks.  The LM, MoE and GNN models come after them."""
+from repro_torch.models import cf, embedding, layers, recsys
 
-__all__ = ["cf"]
+__all__ = ["cf", "embedding", "layers", "recsys"]

@@ -39,6 +39,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.tree import is_namedtuple, unflatten
+
 log = logging.getLogger(__name__)
 
 
@@ -46,16 +48,12 @@ class CorruptCheckpointError(RuntimeError):
     """A checkpoint leaf failed its CRC32 / load check."""
 
 
-def _is_namedtuple(x: Any) -> bool:
-    return isinstance(x, tuple) and hasattr(x, "_fields")
-
-
 def _flatten(tree: Any, path: tuple = ()) -> list[tuple[str, Any]]:
     """(key, leaf) pairs in ``jax.tree_util.tree_flatten_with_path`` order
     and naming."""
     if tree is None:
         return []
-    if _is_namedtuple(tree):
+    if is_namedtuple(tree):
         items = [(f".{f}", getattr(tree, f)) for f in tree._fields]
     elif isinstance(tree, dict):
         items = [(str(k), tree[k]) for k in sorted(tree)]
@@ -67,21 +65,6 @@ def _flatten(tree: Any, path: tuple = ()) -> list[tuple[str, Any]]:
     for name, sub in items:
         out.extend(_flatten(sub, path + (name,)))
     return out
-
-
-def _unflatten(template: Any, leaves) -> Any:
-    """Rebuild ``template``'s structure from an iterator of new leaves."""
-    if template is None:
-        return None
-    if _is_namedtuple(template):
-        return type(template)(*(_unflatten(getattr(template, f), leaves)
-                                for f in template._fields))
-    if isinstance(template, dict):
-        vals = {k: _unflatten(template[k], leaves) for k in sorted(template)}
-        return {k: vals[k] for k in template}
-    if isinstance(template, (list, tuple)):
-        return type(template)(_unflatten(v, leaves) for v in template)
-    return next(leaves)
 
 
 def _to_numpy(leaf: Any) -> tuple[np.ndarray, str]:
@@ -233,7 +216,7 @@ def _restore_step(ckpt_dir: str, template: Any,
                     f"(got {got:#010x}, want {entry['crc32']:#010x})")
         leaves.append(_as_template(arr, tmpl))
         del arr
-    tree = _unflatten(template, iter(leaves))
+    tree = unflatten(template, leaves)
     return tree, meta["step"], meta.get("extra", {})
 
 

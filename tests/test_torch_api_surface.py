@@ -1,16 +1,18 @@
 """Port parity of the public surface: ``repro_torch.serving``,
-``repro_torch.data``, ``repro_torch.distributed`` and
-``repro_torch.configs`` against the reference's snapshot in
-``tests/test_api_surface.py``.
+``repro_torch.data``, ``repro_torch.distributed``, ``repro_torch.configs``,
+``repro_torch.training`` and ``repro_torch.models`` against the
+reference's snapshot in ``tests/test_api_surface.py``.
 
 The port's ``serving.__all__`` is the reference's less ``LMServer`` (not
 ported yet); the config, result and stats dataclasses have the reference's
 field sets (``ServerStats`` may add timing fields); ``OnboardResult``
 keeps the legacy ``(uid, info)`` protocol with the same answers as the
-reference's.  ``data.__all__`` is the reference's less the two recsys
-streams, and its rating generators give the reference's arrays for the
-same seed; ``distributed.__all__`` is the reference's less its mesh-only
-names; ``configs.__all__`` is the reference's.  A CPU server and the
+reference's.  ``data.__all__`` is the reference's (the recsys streams
+landed with the recsys model), and its rating generators give the
+reference's arrays for the same seed; ``distributed.__all__`` is the
+reference's less its mesh-only names; ``configs.__all__`` and
+``training.__all__`` are the reference's; ``models.__all__`` is the
+reference's less the LM and GNN families.  A CPU server and the
 reference's server onboard the same ratings through the legacy unpacking:
 user ids, rungs, statuses and twin flags exact (a latency is a wall-clock
 reading, so only its key mapping is held).
@@ -142,18 +144,21 @@ def test_data_plant_twins_matches_reference():
     assert set(data.__all__) <= set(jdata.__all__)
 
 
-# Wait for the recsys model (ROADMAP Queue 1, item 4).
-DATA_NOT_PORTED = {"CTRStream", "TwoTowerStream"}
-# Mesh-only names of ``repro.distributed``: they wait for the LM, GNN and
-# recsys models (ROADMAP Queue 1, item 4).
+# Every name of ``repro.data`` is ported (the recsys streams last).
+DATA_NOT_PORTED: set[str] = set()
+# Mesh-only names of ``repro.distributed``: they wait for the LM and GNN
+# models and the dry-run group (ROADMAP Queue 1, item 4).
 DISTRIBUTED_NOT_PORTED = {"MeshAxes", "named", "zero_extend", "mesh_axes",
-                          "lm_shardings", "gnn_shardings",
-                          "recsys_shardings"}
+                          "lm_shardings", "gnn_shardings"}
+# The LM and GNN families (ROADMAP Queue 1, item 4).
+MODELS_NOT_PORTED = {"attention", "gnn", "moe", "transformer"}
 
 
 def test_data_all_is_the_reference_less_recsys_streams():
+    """No name is missing any more: the recsys streams are ported."""
     from repro_torch import data
     assert set(data.__all__) == set(jdata.__all__) - DATA_NOT_PORTED
+    assert set(data.__all__) == set(jdata.__all__)
     assert len(data.__all__) == len(set(data.__all__))
     for name in data.__all__:
         assert getattr(data, name).__module__.startswith("repro_torch.")
@@ -166,6 +171,32 @@ def test_distributed_all_is_the_reference_less_mesh_names():
     assert DISTRIBUTED_NOT_PORTED <= set(jdist.__all__)
     for name in tdist.__all__:
         assert getattr(tdist, name).__module__.startswith("repro_torch.")
+
+
+def test_distributed_exports_recsys_shardings():
+    import repro_torch.distributed as tdist
+    from repro_torch.distributed.sharding import recsys_shardings
+    assert "recsys_shardings" in tdist.__all__
+    assert tdist.recsys_shardings is recsys_shardings
+
+
+def test_training_all_is_the_reference():
+    import repro.training as jtrain
+    import repro_torch.training as ttrain
+    assert ttrain.__all__ == jtrain.__all__
+    for name in ttrain.__all__:
+        obj = getattr(ttrain, name)            # ``checkpoint`` is a module
+        mod = obj.__name__ if name == "checkpoint" else obj.__module__
+        assert mod.startswith("repro_torch."), name
+
+
+def test_models_all_is_the_reference_less_lm_and_gnn():
+    import repro.models as jmodels
+    import repro_torch.models as tmodels
+    assert set(tmodels.__all__) == set(jmodels.__all__) - MODELS_NOT_PORTED
+    assert MODELS_NOT_PORTED <= set(jmodels.__all__)
+    for name in tmodels.__all__:
+        assert getattr(tmodels, name).__name__ == f"repro_torch.models.{name}"
 
 
 def test_configs_all_is_the_reference():

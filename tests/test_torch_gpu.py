@@ -970,3 +970,110 @@ def test_gaussian_measures_take_card_tensors(cuda):
     assert gaussian.empirical_set0(rows, rows[:, 3], 0.1) == \
         gaussian.empirical_set0(rows.cpu().numpy(),
                                 rows[:, 3].cpu().numpy(), 0.1)
+
+
+def _tiny_xdeepfm():
+    """xDeepFM at the CPU tests' size (``tests/conftest.py::tiny_recsys``),
+    from the port's registry."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.configs._fields import powerlaw_vocabs
+    cfg = get_arch("xdeepfm").config
+    return dataclasses.replace(
+        cfg, field_vocab_sizes=powerlaw_vocabs(39, largest=500, smallest=8,
+                                               n_large=2),
+        mlp_dims=(64, 64), cin_layers=(16, 16, 16))
+
+
+@pytest.mark.parametrize("n,hot", [(512, 8), (8192, 8), (33, 5)])
+def test_model_embedding_bag_kernel_forward_and_backward(cuda, n, hot):
+    """``models.embedding.embedding_bag`` on a CUDA table: its forward is
+    one kernel launch, bit for bit the plain version's; its backward
+    equals the plain scatter-add of mask·grad within 1e-6 relative to
+    max(1, |sum|): both add a row's terms with atomics in no fixed order
+    (about 13 terms of up to ~16 a row at 8,192 x 8), so the last bits of
+    a sum may differ."""
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import embedding as emb
+    rng = np.random.default_rng(n)
+    V, dim = 5000, 10
+    table = torch.as_tensor(rng.standard_normal((V, dim)).astype(np.float32),
+                            device=cuda).requires_grad_()
+    idx = torch.as_tensor(rng.integers(0, V, (n, 1, hot)).astype(np.int32),
+                          device=cuda)
+    mask = torch.as_tensor(rng.random((n, 1, hot)) < 0.6, device=cuda)
+    reset_launch_counts()
+    out = emb.embedding_bag(table, idx, mask)
+    assert launch_counts()["embedding_bag"] == 1
+    plain = embedding_bag_ref(table.detach(), idx.reshape(n, hot).long(),
+                              mask.reshape(n, hot).float())
+    assert torch.equal(out.detach().reshape(n, dim), plain)
+    gout = torch.as_tensor(rng.standard_normal((n, 1, dim)).astype(
+        np.float32), device=cuda)
+    (g,) = torch.autograd.grad(out, table, gout)
+    want = torch.zeros((V, dim), device=cuda).index_put_(
+        (idx.reshape(-1).long(),),
+        (gout.reshape(n, 1, dim) * mask.reshape(n, hot, 1).float()
+         ).reshape(-1, dim), accumulate=True)
+    assert bool(((g - want).abs()
+                 <= 1e-6 * want.abs().clamp_min(1.0)).all())
+    with pytest.raises(NotImplementedError):
+        emb.embedding_bag(table.detach().double(), idx, mask)
+
+
+def test_xdeepfm_forward_and_train_step_on_card_match_cpu(cuda):
+    """Tiny xDeepFM: the forward on the card (the bag kernel) against the
+    CPU plain path within 1e-5; the gradient that ``make_train_step`` hands
+    its optimizer (4 microbatches summed, then divided) on the card against
+    the CPU's, every leaf within 1e-5 of its largest |value| (AdamW's first
+    step moves each weight by about ±lr whatever the gradient's scale, so
+    the step alone would not see a wrong scale); and one AdamW step with 4
+    microbatches: the loss within 1e-5 and every param within 1e-5."""
+    from repro_torch.bridge import params_to_numpy
+    from repro_torch.data import CTRStream
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import recsys as rec
+    from repro_torch.training import AdamW, make_train_step
+    from repro_torch.tree import leaves, tree_map
+    cfg = _tiny_xdeepfm()
+    params = rec.init_params(torch.Generator().manual_seed(0), cfg)
+    batch = CTRStream(cfg, 64, seed=3)(0)
+    card_p = tree_map(lambda t: t.to(cuda), params)
+    cb = {k: torch.as_tensor(v, device=cuda) for k, v in batch.items()}
+    hb = {k: torch.as_tensor(v) for k, v in batch.items()}
+    reset_launch_counts()
+    with torch.no_grad():
+        got = rec.forward(card_p, cb, cfg)
+    assert launch_counts()["embedding_bag"] == 1
+    want = rec.forward(params, hb, cfg)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+
+    class Keep:
+        """An optimizer that keeps the gradient it is given."""
+
+        def init(self, p):
+            return None
+
+        def update(self, grads, state, p):
+            self.grads = params_to_numpy(grads)
+            return p, state
+
+    kept = []
+    for p, b in ((card_p, cb), (params, hb)):
+        keep = Keep()
+        make_train_step(lambda p, b: rec.loss(p, b, cfg), keep,
+                        accum_steps=4)(p, None, None, b)
+        kept.append(leaves(keep.grads))
+    for a, b in zip(*kept):
+        assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max()
+
+    opt = AdamW(lr=1e-3, weight_decay=0.01)
+    step = make_train_step(lambda p, b: rec.loss(p, b, cfg), opt,
+                           accum_steps=4)
+    reset_launch_counts()
+    cp, _, _, cm = step(card_p, opt.init(card_p), None, cb)
+    assert launch_counts()["embedding_bag"] == 4
+    hp, _, _, hm = step(params, opt.init(params), None, hb)
+    assert abs(float(cm["loss"]) - float(hm["loss"])) <= 1e-5
+    for a, b in zip(leaves(params_to_numpy(cp)), leaves(params_to_numpy(hp))):
+        assert np.abs(a - b).max() <= 1e-5
