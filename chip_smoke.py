@@ -116,14 +116,32 @@ Phases, in order; the script exits non-zero as soon as a check fails:
                the path's shapes (512 x 8, 8,192 x 8) timed cold beside its
                bound, and a serve forward under the profiler.  Prints
                ``{"recsys": {...}}``.
- 11. movielens — the same request script at 943 x 1,682 on the card and on
+ 11. LM family — gemma3-1b and OLMoE-1B-7B at the registered configs'
+               full widths, seeded random bf16 weights drawn on the card:
+               (a) ``LMServer`` serves 16 prompts of 2,048 tokens from
+               ``TokenPipeline`` (8 distinct, each twice), 32 new tokens,
+               with and without dedup (completions equal, 8 and 16 prefill
+               rows, savings 0.5), prefill and decode steps timed by CUDA
+               events, one decode step under the profiler; (b) 2 prompts
+               cut to 256 tokens and 4 decode steps on the card against the
+               host's plain path with the same weights (logits within a
+               stated bf16 bound, greedy tokens equal except near-ties);
+               (c) the reference's cells through ``steps.build_cell``:
+               prefill_32k (batch cut from 32 to 1), decode_32k and
+               long_500k at full shape (8 steps each), train_4k (batch cut
+               from 256 to 8; 2 steps, finite losses, peak within 60 GB);
+               (d) OLMoE-1B-7B serving 8 prompts of 1,024 tokens (4
+               distinct), 16 new tokens, and its first 2 layers against the
+               host.  Counts zeroed before, read after: the LM path
+               launches none of the six kernels.  Prints ``{"lm": {...}}``.
+ 12. movielens — the same request script at 943 x 1,682 on the card and on
                the CPU (the plain versions), held to the parity tests'
                tolerances.
- 12. summary — ``{"kernels": [...]}`` (all six kernels, each with the
+ 13. summary — ``{"kernels": [...]}`` (all six kernels, each with the
                launches of the phases that drove it: 4, 6, 7, 8 and 9 for
                the main path's three, 5 for the others and 10 for
-               ``embedding_bag``), the nvidia-smi line, and last
-               ``{"ok": true, "device": {...}}``.
+               ``embedding_bag``; phase 11 launches none), the nvidia-smi
+               line, and last ``{"ok": true, "device": {...}}``.
 
 It imports neither ``jax`` nor the JAX package, and refuses to run (exit 2)
 without a CUDA device or without ``src/repro_torch`` beside it.
@@ -2648,7 +2666,457 @@ def run_recsys(torch, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 11: MovieLens shape, card against CPU
+# Phase 11: the LM family
+# ---------------------------------------------------------------------------
+
+# (a) gemma3-1b serving: 16 prompts of 2,048 tokens (8 distinct, each
+# twice), 32 new tokens, the global cache grown to 4,096.  (b) card
+# against host: 2 prompts cut to 256 tokens and 4 decode steps.  (c) the
+# reference's cells: prefill_32k with its batch cut from 32 to 1,
+# decode_32k and long_500k at their full shapes (8 steps each), train_4k
+# with its batch cut from 256 to LM_TRAIN_BATCH (2 steps).  (d)
+# OLMoE-1B-7B serving 8 prompts of 1,024 tokens (4 distinct), 16 new
+# tokens; its host check cut to the first 2 layers at full width (1 prompt
+# of 128 tokens, 2 decode steps).
+LM_SERVE = dict(n_prompts=16, n_distinct=8, prompt_len=2048, n_new=32,
+                max_len=4096)
+MOE_SERVE = dict(n_prompts=8, n_distinct=4, prompt_len=1024, n_new=16,
+                 max_len=1024 + 16)
+LM_HOST = dict(rows=2, prompt_len=256, steps=4)
+MOE_HOST = dict(rows=1, prompt_len=128, steps=2)
+MOE_HOST_LAYERS = 2
+LM_CELL_STEPS = 8
+LM_PREFILL_BATCH = 1
+LM_TRAIN_BATCH, LM_TRAIN_STEPS = 8, 2
+LM_TRAIN_BUDGET_GB = 60.0
+GEMMA3_1B_PARAMS = 999_812_736
+# Logits of the card against the host in bfloat16 (the bound PERF.md
+# section 6 states): the RMS of the difference within 1/16 of the host's
+# RMS; a greedy token may differ only where the host's top two logits lie
+# within twice the row's largest difference.
+LM_LOGIT_RMS_FRAC = 1 / 16
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.tree import leaves
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def read_bound_ms(params, cache) -> float:
+    """The least time of a decode step: every weight and the whole cache
+    read once at the memory rate (the MoE's capacity buffer spans every
+    expert, so its step reads them all)."""
+    return (tree_bytes(params) + tree_bytes(cache)) / HBM_BYTES_PER_S * 1e3
+
+
+class TimedCalls:
+    """A callable that records a CUDA event pair around each call of
+    ``fn`` and keeps the last call's arguments."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn, self.spans, self.last_args = torch, fn, [], None
+
+    def __call__(self, *args):
+        ev = self.torch.cuda.Event
+        start, end = ev(enable_timing=True), ev(enable_timing=True)
+        start.record()
+        out = self.fn(*args)
+        end.record()
+        self.spans.append((start, end))
+        self.last_args = args
+        return out
+
+    def ms(self) -> list[float]:
+        """Milliseconds of each call (after a synchronize)."""
+        return [s.elapsed_time(e) for s, e in self.spans]
+
+
+def lm_serve(torch, cfg, params, label: str, n_prompts: int,
+             n_distinct: int, prompt_len: int, n_new: int,
+             max_len: int) -> dict:
+    """``LMServer.generate`` with and without dedup on ``n_prompts``
+    prompts from ``TokenPipeline(seed=0)``, ``n_distinct`` of them
+    distinct, each repeated: the completions must be equal, the prefill
+    rows and savings the plan's.  The dedup run's prefill and decode steps
+    timed by CUDA events, its wall time, and the device share of one
+    decode step under the profiler."""
+    import numpy as np
+    from repro_torch.data import TokenPipeline
+    from repro_torch.serving import LMServer
+    distinct = TokenPipeline(cfg.vocab_size, n_distinct, prompt_len,
+                             seed=0)(0)["tokens"]
+    batch = distinct[np.arange(n_prompts) % n_distinct]
+    srv = LMServer(params, cfg, max_len=max_len)
+    srv.generate(batch[:1, :64], n_new=2)          # first-call effects
+    srv._prefill = TimedCalls(torch, srv._prefill)
+    srv._decode = TimedCalls(torch, srv._decode)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, info = srv.generate(batch, n_new=n_new, dedup=True)
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prefill_ms, decode_ms = srv._prefill.ms()[0], srv._decode.ms()
+    decode = srv._decode
+    out_full, info_full = srv.generate(batch, n_new=n_new, dedup=False)
+    check(np.array_equal(out, out_full),
+          f"{label}: completions with and without dedup equal "
+          f"({out.shape[0]} x {out.shape[1]})")
+    check(info["prefill_rows"] == n_distinct
+          and info_full["prefill_rows"] == n_prompts
+          and info["dedup_savings"] == 1 - n_distinct / n_prompts,
+          f"{label}: prefill rows {info['prefill_rows']} and "
+          f"{info_full['prefill_rows']}, dedup savings "
+          f"{info['dedup_savings']}")
+    check(all(np.array_equal(out[i], out[i % n_distinct])
+              for i in range(n_prompts)),
+          f"{label}: every repeat has its twin's completion")
+    bound = read_bound_ms(decode.last_args[0], decode.last_args[1])
+    log(f"  {label}: one decode step (batch {n_distinct}; read bound "
+        f"{bound:.3f} ms) under the profiler:")
+    with torch.no_grad():
+        share = device_share(torch, lambda: decode.fn(*decode.last_args), 5)
+    m = {"prompts": n_prompts, "distinct": n_distinct,
+         "prompt_len": prompt_len, "n_new": n_new,
+         "prefill_tokens": n_distinct * prompt_len, "prefill_ms": prefill_ms,
+         "decode_ms_p50": pct(decode_ms, 0.5),
+         "decode_ms_p99": pct(decode_ms, 0.99), "decode_steps": len(decode_ms),
+         "decode_read_bound_ms": bound, "generate_s": wall_s,
+         "completion_tokens_per_s": n_prompts * n_new / wall_s,
+         "peak_gb": peak, "decode_profile": share}
+    log(f"  {label}: prefill {prefill_ms:.1f} ms for {m['prefill_tokens']} "
+        f"tokens; decode p50 {m['decode_ms_p50']:.2f} ms, p99 "
+        f"{m['decode_ms_p99']:.2f} ms a step ({len(decode_ms)} steps); "
+        f"generate {wall_s:.2f} s, {m['completion_tokens_per_s']:.0f} "
+        f"completion tokens/s; peak {peak:.2f} GB")
+    return m
+
+
+def logits_agree(torch, card, host) -> dict:
+    """The card's logits against the host's (bfloat16 models): the RMS of
+    the difference against the host's RMS, and which greedy tokens are
+    equal or excused, i.e. where the host's top two logits of a row lie
+    within twice that row's largest difference."""
+    card, host = card.float().cpu(), host.float()
+    diff = (card - host).abs()
+    top2 = torch.topk(host, 2, dim=-1).values
+    same = card.argmax(-1) == host.argmax(-1)
+    excused = ~same & (top2[:, 0] - top2[:, 1] <= 2 * diff.max(-1).values)
+    return {"finite": bool(torch.isfinite(card).all()),
+            "rms_diff": float((card - host).square().mean().sqrt()),
+            "rms_host": float(host.square().mean().sqrt()),
+            "max_diff": float(diff.max()), "tokens_equal": int(same.sum()),
+            "tokens": int(same.numel()),
+            "near_ties_excused": int(excused.sum())}
+
+
+def prefill_then_decode(torch, cfg, params, tokens, steps: int,
+                        feed: list) -> list:
+    """The logits of ``prefill`` and of ``steps`` decode steps, the global
+    cache grown by ``steps``; step i is fed ``feed[i]``, or, where ``feed``
+    is short, the greedy token, which it then appends to ``feed``."""
+    from repro_torch.models import transformer as lm
+    S = tokens.shape[1]
+    dev = params["embed"].device
+    with torch.no_grad():
+        logits, cache = lm.prefill(params, tokens.to(dev), cfg)
+        for k in ("kg", "vg"):
+            c = cache[k]
+            grown = c.new_zeros((*c.shape[:2], S + steps, *c.shape[3:]))
+            grown[:, :, :S] = c
+            cache[k] = grown
+        out = [logits]
+        for i in range(steps):
+            if len(feed) == i:
+                feed.append(torch.argmax(logits, -1)[:, None].to(
+                    torch.int32).cpu())
+            logits, cache = lm.decode_step(params, cache, feed[i].to(dev),
+                                           S + i, cfg)
+            out.append(logits)
+    return out
+
+
+def lm_card_vs_host(torch, dev, cfg, params, label: str, rows: int,
+                    prompt_len: int, steps: int) -> dict:
+    """``prefill`` and ``steps`` decode steps on the host's plain path
+    with the card's weights copied over, then on the card, each step fed
+    the host's greedy token; every row of logits held to
+    ``logits_agree``."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.tree import tree_map
+    tokens = torch.as_tensor(TokenPipeline(cfg.vocab_size, rows, prompt_len,
+                                           seed=1)(0)["tokens"])
+    t0 = time.perf_counter()
+    host_params = tree_map(lambda t: t.cpu(), params)
+    copy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    feed: list = []
+    host = prefill_then_decode(torch, cfg, host_params, tokens, steps, feed)
+    host_s = time.perf_counter() - t0
+    del host_params
+    card = prefill_then_decode(torch, cfg, params, tokens, steps, feed)
+    per_step = [logits_agree(torch, c, h) for c, h in zip(card, host)]
+    m = {"rows": rows, "prompt_len": prompt_len, "decode_steps": steps,
+         "rms_ratio_max": max(s["rms_diff"] / s["rms_host"]
+                              for s in per_step),
+         "rms_diff_max": max(s["rms_diff"] for s in per_step),
+         "max_diff": max(s["max_diff"] for s in per_step),
+         "tokens_equal": sum(s["tokens_equal"] for s in per_step),
+         "tokens": sum(s["tokens"] for s in per_step),
+         "near_ties_excused": sum(s["near_ties_excused"] for s in per_step),
+         "host_copy_s": copy_s, "host_s": host_s}
+    check(all(s["finite"] for s in per_step)
+          and m["rms_ratio_max"] <= LM_LOGIT_RMS_FRAC
+          and m["tokens_equal"] + m["near_ties_excused"] == m["tokens"],
+          f"{label}: card logits = host logits (bf16) at the prefill and "
+          f"{steps} decode steps: RMS difference at most "
+          f"{m['rms_ratio_max']:.3g} of the host's RMS (bound "
+          f"{LM_LOGIT_RMS_FRAC:.4g}), largest difference "
+          f"{m['max_diff']:.3g}; greedy tokens equal "
+          f"{m['tokens_equal']}/{m['tokens']} "
+          f"({m['near_ties_excused']} near-ties excused); host run "
+          f"{host_s:.1f} s")
+    return m
+
+
+def lm_cells(torch, dev, spec, params) -> dict:
+    """The reference's four cells of ``spec`` through
+    ``steps.build_cell``, each run: prefill_32k (batch cut to
+    ``LM_PREFILL_BATCH``), decode_32k and long_500k at full shape
+    (``LM_CELL_STEPS`` steps each, the cache random, its ring holding the
+    positions a prefill would leave), train_4k (batch cut to
+    ``LM_TRAIN_BATCH``, ``LM_TRAIN_STEPS`` steps from the given weights)."""
+    import numpy as np
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.training.optimizer import AdamW
+    cfg = spec.config
+    out = {}
+
+    # prefill_32k
+    full = spec.shape("prefill_32k")
+    S = full.dim("seq_len")
+    shape = ShapeSpec(full.name, full.kind, {**full.dims,
+                                             "global_batch":
+                                             LM_PREFILL_BATCH})
+    cell = build_cell(spec, shape)
+    tokens = torch.as_tensor(TokenPipeline(cfg.vocab_size, LM_PREFILL_BATCH,
+                                           S, seed=2)(0)["tokens"],
+                             device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = cell.fn(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    W = cfg.window
+    ring_ok = bool(torch.equal(
+        torch.sort(cache["ring_pos"]).values.cpu(),
+        torch.arange(S - W, S, dtype=torch.int32)))
+    check(bool(torch.isfinite(logits).all())
+          and logits.shape == (LM_PREFILL_BATCH, cfg.vocab_size) and ring_ok
+          and cache["kg"].shape[2] == S,
+          f"prefill_32k (batch {LM_PREFILL_BATCH} of "
+          f"{full.dim('global_batch')}, S = {S}: {S // 2048} KV chunks): "
+          f"finite logits, the ring holds positions {S - W}..{S - 1}, the "
+          f"global cache {S} long")
+    # The weights' products (lm_model_flops) and the scores and
+    # probability-value products over every key of every layer, as the
+    # reference computes them, at the bf16 rate.
+    flops = cell.model_flops + 4.0 * LM_PREFILL_BATCH * cfg.n_heads * \
+        S * S * cfg.head_dim * cfg.n_layers
+    out["prefill_32k"] = {"batch": LM_PREFILL_BATCH, "seq_len": S,
+                          "ms": ms, "tokens_per_s": LM_PREFILL_BATCH * S /
+                          ms * 1e3, "model_flops": cell.model_flops,
+                          "flops": flops,
+                          "bound_ms": flops / BF16_FLOPS_PER_S * 1e3,
+                          "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"  prefill_32k: {ms:.0f} ms (bound "
+        f"{out['prefill_32k']['bound_ms']:.0f} ms: {flops:.3g} FLOP at the "
+        "bf16 rate), "
+        f"{out['prefill_32k']['tokens_per_s']:.0f} tokens/s, peak "
+        f"{out['prefill_32k']['peak_gb']:.2f} GB")
+    del logits, cache, tokens
+    torch.cuda.empty_cache()
+
+    # decode_32k and long_500k
+    for name in ("decode_32k", "long_500k"):
+        shape = spec.shape(name)
+        B, S = shape.dim("global_batch"), shape.dim("seq_len")
+        cell = build_cell(spec, shape)
+        _p, cache_s, _t, _pos = cell.args
+        start = S - LM_CELL_STEPS
+        cache = {}
+        for k, s in cache_s.items():
+            if k == "ring_pos":
+                p = torch.arange(start - W, start, dtype=torch.int32,
+                                 device=dev)
+                cache[k] = torch.empty(W, dtype=torch.int32, device=dev)
+                cache[k][p % W] = p
+            else:
+                cache[k] = torch.randn(s.shape, dtype=s.dtype, device=dev)
+        cache_gb = sum(t.numel() * t.element_size()
+                       for t in cache.values()) / 1e9
+        tok = torch.as_tensor(np.random.default_rng(SEED + 60).integers(
+            0, cfg.vocab_size, (B, 1)).astype(np.int32), device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps_ms = []
+        with torch.no_grad():
+            for i in range(LM_CELL_STEPS):
+                t0 = time.perf_counter()
+                logits, cache = cell.fn(params, cache, tok, start + i)
+                tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+                torch.cuda.synchronize()
+                steps_ms.append((time.perf_counter() - t0) * 1e3)
+        check(bool(torch.isfinite(logits).all())
+              and logits.shape == (B, cfg.vocab_size)
+              and int(cache["ring_pos"][(S - 1) % W]) == S - 1,
+              f"{name} (B = {B}, cache {S}, {cache_gb:.1f} GB): "
+              f"{LM_CELL_STEPS} steps, finite logits, the ring holds the "
+              f"last position")
+        out[name] = {"batch": B, "seq_len": S, "cache_gb": cache_gb,
+                     "step_ms": steps_ms,
+                     "step_ms_p50": pct(steps_ms[1:], 0.5),
+                     "read_bound_ms": read_bound_ms(params, cache),
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        log(f"  {name}: step p50 {out[name]['step_ms_p50']:.2f} ms (first "
+            f"{steps_ms[0]:.2f} ms; read bound "
+            f"{out[name]['read_bound_ms']:.3f} ms), cache {cache_gb:.2f} GB, "
+            "peak "
+            f"{out[name]['peak_gb']:.2f} GB; the last step again under the "
+            "profiler:")
+        with torch.no_grad():
+            out[name]["profile"] = device_share(
+                torch, lambda: cell.fn(params, cache, tok, S - 1), 3)
+        del cache, logits, tok
+        torch.cuda.empty_cache()
+
+    # train_4k
+    full = spec.shape("train_4k")
+    S = full.dim("seq_len")
+    shape = ShapeSpec(full.name, full.kind, {**full.dims,
+                                             "global_batch": LM_TRAIN_BATCH})
+    cell = build_cell(spec, shape)
+    pipe = TokenPipeline(cfg.vocab_size, LM_TRAIN_BATCH, S, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    p = params
+    opt_state = AdamW(lr=3e-4, weight_decay=0.01).init(p)
+    losses, steps_s = [], []
+    for i in range(LM_TRAIN_STEPS):
+        batch = {"tokens": torch.as_tensor(pipe(i)["tokens"], device=dev)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, opt_state, loss = cell.fn(p, opt_state, batch)
+        losses.append(float(loss))
+        steps_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(all(math.isfinite(x) for x in losses) and peak <=
+          LM_TRAIN_BUDGET_GB,
+          f"train_4k (batch {LM_TRAIN_BATCH} of {full.dim('global_batch')}, "
+          f"S = {S}, remat, AdamW): {LM_TRAIN_STEPS} steps, finite losses "
+          f"{[round(x, 4) for x in losses]}, peak {peak:.2f} GB within "
+          f"{LM_TRAIN_BUDGET_GB:.0f}")
+    s_step = steps_s[-1]
+    out["train_4k"] = {"batch": LM_TRAIN_BATCH, "seq_len": S,
+                       "losses": losses, "step_s": steps_s,
+                       "tokens_per_s": LM_TRAIN_BATCH * S / s_step,
+                       "model_tflops_per_s": cell.model_flops / s_step / 1e12,
+                       "bf16_peak_share": cell.model_flops / s_step /
+                       BF16_FLOPS_PER_S, "peak_gb": peak}
+    log(f"  train_4k: {s_step:.3f} s a step (first {steps_s[0]:.3f} s), "
+        f"{out['train_4k']['tokens_per_s']:.0f} tokens/s, "
+        f"{out['train_4k']['model_tflops_per_s']:.1f} TFLOP/s of "
+        f"lm_model_flops ({out['train_4k']['bf16_peak_share']:.1%} of the "
+        f"989 TFLOP/s bf16 peak), peak {peak:.2f} GB")
+    del p, opt_state, batch, loss
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_lm(torch, dev) -> dict:
+    """The LM family at full width (``repro_torch.configs``): (a) gemma3-1b
+    served by ``LMServer``, (b) its logits on the card against the host,
+    (c) its four reference cells through ``steps.build_cell``, (d)
+    OLMoE-1B-7B served and held to the host on its first two layers.
+    Launch counts zeroed at the start and read at the end: the LM path
+    launches none of the six kernels."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as lm
+    from repro_torch.tree import leaves
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    metrics = {}
+
+    spec = get_arch("gemma3-1b")
+    cfg = spec.config
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(dev).manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in leaves(params))
+    check(n == cfg.param_count() == GEMMA3_1B_PARAMS,
+          f"gemma3-1b at full width: {n:,} params drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, vocab {cfg.vocab_size:,}, bf16)")
+    metrics["gemma3_serve"] = lm_serve(torch, cfg, params,
+                                       "gemma3-1b serve", **LM_SERVE)
+    metrics["gemma3_card_vs_host"] = lm_card_vs_host(
+        torch, dev, cfg, params, "gemma3-1b", **LM_HOST)
+    metrics["gemma3_cells"] = lm_cells(torch, dev, spec, params)
+    del params
+    torch.cuda.empty_cache()
+
+    spec = get_arch("olmoe-1b-7b")
+    cfg = spec.config
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(dev).manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in leaves(params))
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    check(n == cfg.param_count(),
+          f"OLMoE-1B-7B at full width: {n:,} params "
+          f"({n * 2 / 1e9:.2f} GB bf16) drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s (peak {init_peak:.2f} GB)")
+    metrics["olmoe_serve"] = lm_serve(torch, cfg, params, "olmoe serve",
+                                      **MOE_SERVE)
+    cut = dataclasses.replace(cfg, n_layers=MOE_HOST_LAYERS)
+    cut_params = {**params, "layers": {k: v[:MOE_HOST_LAYERS] for k, v in
+                                       params["layers"].items()}}
+    metrics["olmoe_card_vs_host"] = lm_card_vs_host(
+        torch, dev, cut, cut_params,
+        f"olmoe (first {MOE_HOST_LAYERS} of {cfg.n_layers} layers)",
+        **MOE_HOST)
+    metrics["olmoe_card_vs_host"]["layers"] = MOE_HOST_LAYERS
+    del params, cut_params
+    torch.cuda.empty_cache()
+
+    counts = launch_counts()
+    check(not any(counts.values()),
+          f"the LM path launched none of the six kernels ({counts}); the "
+          "kernels line does not count this phase")
+    metrics["kernel_launches"] = counts
+    metrics["cuts"] = {
+        "prefill_32k": f"batch {LM_PREFILL_BATCH} of 32",
+        "train_4k": f"batch {LM_TRAIN_BATCH} of 256",
+        "olmoe_card_vs_host": f"first {MOE_HOST_LAYERS} of 16 layers",
+        "gemma3_card_vs_host": f"{LM_HOST['rows']} prompts cut to "
+                               f"{LM_HOST['prompt_len']} tokens"}
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase {metrics['phase_s']:.1f} s")
+    return metrics
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: MovieLens shape, card against CPU
 # ---------------------------------------------------------------------------
 
 def movielens_script(torch, device: str):
@@ -2808,10 +3276,14 @@ def main() -> int:
         recsys = run_recsys(torch, dev)
         torch.cuda.empty_cache()
 
-        log("== 11. MovieLens shape, card against CPU")
+        log("== 11. LM family at full width")
+        lm = run_lm(torch, dev)
+        torch.cuda.empty_cache()
+
+        log("== 12. MovieLens shape, card against CPU")
         run_movielens(torch)
 
-        log("== 12. summary")
+        log("== 13. summary")
         main_phases = (server, durability, replication, buffered, cf_family)
         kernels = []
         for kname in MAIN_PATH + API_KERNELS:
@@ -2834,6 +3306,7 @@ def main() -> int:
         print(json.dumps({"buffered": buffered}))
         print(json.dumps({"cf_family": cf_family}))
         print(json.dumps({"recsys": recsys}))
+        print(json.dumps({"lm": lm}))
         print(json.dumps({"kernels": kernels}))
         print(nvidia_smi_line())
         print(json.dumps({"ok": True, "device": {

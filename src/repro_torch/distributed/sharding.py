@@ -10,18 +10,21 @@ the reference's ``rows_loc = N_base // n_shards`` would drop the last rows,
 and ``shard_map`` refuses such a split.
 
 ``recsys_shardings`` names the same for the recsys family: the embedding
-tables by rows, everything else replicated.
+tables by rows, everything else replicated.  ``lm_shardings`` names it for
+the LM family: tokens and the decode cache by batch rows, the params
+replicated.
 
 ``shard_row_slice`` is the fault harness's split, where the last shard
 takes any remainder.  The mesh-only names of the reference module
-(``MeshAxes``, ``named``, ``zero_extend``, the LM and GNN rules) come with
-the models that use them.
+(``MeshAxes``, ``named``, ``zero_extend``, the GNN rules) come with the
+models and the dry-run group that use them.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 from repro_torch.core.types import CFState
+from repro_torch.models import transformer as lm
 from repro_torch.tree import tree_map
 
 
@@ -41,9 +44,11 @@ def shard_row_slice(n_rows: int, n_shards: int, shard: int) -> slice:
 @dataclass(frozen=True)
 class Rows:
     """Even row slices: rank r of ``world_size`` holds rows
-    [r·n/w, (r+1)·n/w)."""
+    [r·n/w, (r+1)·n/w) of axis ``axis`` (the LM decode cache keeps its
+    batch rows on axis 1)."""
 
     world_size: int
+    axis: int = 0
 
     def slice(self, n_rows: int, rank: int) -> slice:
         w = self.world_size
@@ -133,3 +138,40 @@ def recsys_shardings(cfg, world_size: int, kind: str, params) -> dict:
     else:
         inputs = {k: rows for k in _RECSYS_INPUTS}
     return {"params": spec, "inputs": inputs}
+
+
+def lm_shardings(cfg, world_size: int, kind: str, batch: int,
+                 seq_len: int) -> dict:
+    """Which rows of each leaf a rank holds for the LM step ``kind``
+    (``train``, ``prefill`` or ``decode``): ``{"params", "hooks",
+    "inputs"}``, plus ``"cache"`` (prefill's output) and ``"logits"``
+    (decode's output).
+
+    Tokens, logits and the decode cache go by batch rows when
+    ``world_size`` divides ``batch`` and are replicated otherwise, the
+    reference's rule for its data axes; the cache's batch is its axis 1, and
+    ``ring_pos`` is replicated.  The params are replicated: the reference's
+    Megatron tensor-parallel and FSDP specs need a 2-D mesh, which waits for
+    ``launch/mesh.py`` (ROADMAP Queue 1, item 4.4).  The hooks are the
+    transformer's no-op ``LMShardingHooks()``.  ``seq_len`` sizes the
+    cache."""
+    if world_size < 1:
+        raise ValueError(f"world_size must be >= 1, got {world_size}")
+    b = Rows(world_size) if batch % world_size == 0 else Replicated()
+    cb = Rows(world_size, axis=1) if batch % world_size == 0 else Replicated()
+    out = {"params": tree_map(lambda _: Replicated(), lm.param_structs(cfg)),
+           "hooks": lm.LMShardingHooks()}
+    cache = {k: Replicated() if k == "ring_pos" else cb
+             for k in lm.cache_structs(cfg, batch, seq_len)}
+    if kind == "train":
+        out["inputs"] = {"tokens": b}
+    elif kind == "prefill":
+        out["inputs"] = {"tokens": b}
+        out["cache"] = cache
+    elif kind == "decode":
+        out["inputs"] = {"cache": cache, "tokens": b, "pos": Replicated()}
+        out["logits"] = b
+    else:
+        raise ValueError(f"unknown LM step kind {kind!r}; have 'train', "
+                         "'prefill', 'decode'")
+    return out

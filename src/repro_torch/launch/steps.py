@@ -4,8 +4,8 @@ tensors, each leaf's row split over the ranks, and the analytic useful
 FLOPs.  The single dispatch point the trainer shares with the tests.
 
 Train cells run the full train step: loss -> backward -> AdamW update.
-The port builds cells for the ``recsys`` and ``cf`` families; ``lm`` and
-``gnn`` raise until their models land (ROADMAP Queue 1, item 4).
+The port builds cells for the ``lm``, ``recsys`` and ``cf`` families;
+``gnn`` raises until its model lands (ROADMAP Queue 1, item 4.2).
 ``jit_cell`` and ``launch/mesh.py`` bind a cell to a TPU mesh; they wait
 with the dry-run group (``dryrun``, ``roofline``) that ports them as
 shape and memory checks on the ``meta`` device.
@@ -20,6 +20,7 @@ from repro_torch.core.types import CFState
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import cf as cf_mod
 from repro_torch.models import recsys as rec_mod
+from repro_torch.models import transformer as lm_mod
 from repro_torch.training.optimizer import AdamW, AdamWState
 from repro_torch.training.train_loop import value_and_grad
 
@@ -146,9 +147,39 @@ def cf_model_flops(cfg, shape: ShapeSpec) -> float:
 # ---------------------------------------------------------------------------
 
 def _lm_cell(spec: ArchSpec, shape: ShapeSpec, world_size: int) -> Cell:
-    raise NotImplementedError(
-        f"{spec.arch_id}: the port has no LM model yet (models/attention, "
-        "transformer, moe; ROADMAP Queue 1, item 4, the LM family)")
+    """``train``: ``lm_loss`` -> gradients -> AdamW.  ``prefill``: the
+    last-position logits and the decode cache.  ``decode``: one token per
+    sequence against the cache, which it updates in place."""
+    cfg = spec.config
+    sh = shd.lm_shardings(cfg, world_size, shape.kind,
+                          shape.dim("global_batch"), shape.dim("seq_len"))
+    pstructs = lm_mod.param_structs(cfg)
+    pspecs, hooks = sh["params"], sh["hooks"]
+    inputs = lm_mod.input_structs(cfg, shape)
+    flops = lm_model_flops(cfg, shape)
+    name = f"{spec.arch_id}/{shape.name}"
+
+    if shape.kind == "train":
+        opt, ostructs, ospecs = _opt_structs_and_specs(pstructs, pspecs)
+        step = _train_step(
+            lambda p, b: lm_mod.lm_loss(p, b["tokens"], cfg, hooks), opt)
+        return Cell(name=name, fn=step, args=(pstructs, ostructs, inputs),
+                    shardings=(pspecs, ospecs, sh["inputs"]),
+                    model_flops=flops)
+    if shape.kind == "prefill":
+        def step(params, batch):
+            return lm_mod.prefill(params, batch["tokens"], cfg, hooks)
+        return Cell(name=name, fn=step, args=(pstructs, inputs),
+                    shardings=(pspecs, sh["inputs"]), model_flops=flops)
+
+    def step(params, cache, tokens, pos):
+        return lm_mod.decode_step(params, cache, tokens, pos, cfg, hooks)
+    ins = sh["inputs"]
+    return Cell(name=name, fn=step,
+                args=(pstructs, inputs["cache"], inputs["tokens"],
+                      inputs["pos"]),
+                shardings=(pspecs, ins["cache"], ins["tokens"], ins["pos"]),
+                model_flops=flops)
 
 
 def _gnn_cell(spec: ArchSpec, shape: ShapeSpec, world_size: int) -> Cell:

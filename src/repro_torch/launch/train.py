@@ -8,12 +8,13 @@ by default; the tests pass ``--device cpu``.
 
   python -m repro_torch.launch.train --arch xdeepfm --shape train_batch \\
       --steps 100 --ckpt /ckpt/run1 [--resume] [--device cuda]
+  python -m repro_torch.launch.train --arch gemma3-1b --shape train_4k
 
-From zeros only the wide branch and the last biases receive gradient (the
-reference's start, kept: ROADMAP, reference quirks).  ``--multi-pod`` and
-``--debug-mesh`` name JAX meshes, which the port does not have, and exit
-with a message; so does the ``lm`` family until the port's transformer
-lands.
+From zeros only the recsys models' wide branch and last biases receive
+gradient, and an LM's gradients are all zero (the reference's start, kept:
+ROADMAP, reference quirks).  ``--multi-pod`` and ``--debug-mesh`` name JAX
+meshes, which the port does not have, and exit with a message; so does a
+shape that is not a training shape.
 """
 from __future__ import annotations
 
@@ -36,6 +37,13 @@ log = logging.getLogger("repro_torch.launch.train")
 def make_batches(spec, shape, device: str | torch.device = "cuda"):
     """Deterministic host data pipeline per family, each batch moved to
     ``device``."""
+    if spec.family == "lm":
+        from repro_torch.data import TokenPipeline
+        pipe = TokenPipeline(spec.config.vocab_size,
+                             shape.dim("global_batch"),
+                             shape.dim("seq_len"), seed=0)
+        return lambda i: {"tokens": torch.as_tensor(pipe(i)["tokens"],
+                                                    device=device)}
     if spec.family == "recsys":
         from repro_torch.data import CTRStream, TwoTowerStream
         cls = (TwoTowerStream if spec.config.variant == "two_tower"
@@ -78,11 +86,11 @@ def main(argv: list[str] | None = None):
                      "names a JAX mesh; the port runs on one card (or the "
                      "CPU) and has no meshes")
     spec = get_arch(args.arch)
-    if spec.family == "lm":
-        sys.exit("repro_torch.launch.train: the lm family needs the port's "
-                 "transformer, which it does not have yet")
     device = require_device(args.device, "repro_torch.launch.train")
     shape = spec.shape(args.shape)
+    if not shape.kind.startswith("train"):
+        sys.exit(f"repro_torch.launch.train: {args.arch}/{args.shape} is a "
+                 f"{shape.kind} shape, not a train shape")
     cell = build_cell(spec, shape)
     pstructs, ostructs, _ = cell.args
     params, opt_state = _zeros(pstructs, device), _zeros(ostructs, device)

@@ -1,5 +1,7 @@
-"""Model families of the port: the CF family and the recsys family with
-their building blocks.  The LM, MoE and GNN models come after them."""
-from repro_torch.models import cf, embedding, layers, recsys
+"""Model families of the port: the CF, recsys and LM (dense and MoE)
+families with their building blocks.  The GNN family comes after them."""
+from repro_torch.models import (attention, cf, embedding, layers, moe,
+                                recsys, transformer)
 
-__all__ = ["cf", "embedding", "layers", "recsys"]
+__all__ = ["attention", "cf", "embedding", "layers", "moe", "recsys",
+           "transformer"]

@@ -126,3 +126,45 @@ def fan_in_init(gen: torch.Generator | None, shape: tuple[int, ...],
                 device: str | torch.device | None = None) -> torch.Tensor:
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     return normal_init(gen, shape, fan_in ** -0.5, dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# Products with float32 output
+# ---------------------------------------------------------------------------
+
+class _MatmulF32(torch.autograd.Function):
+    """``a @ b`` of low-precision operands with a float32 result: each
+    product exact, the sums in float32.  On the card one cuBLAS call with a
+    float32 output (``out_dtype``); on the CPU a product of float32 copies.
+    The backward is JAX's transpose rule for such a product: the float32
+    cotangent times the other operand in float32, cast to the operand's
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.is_cuda:
+            op = torch.mm if a.dim() == 2 else torch.bmm
+            return op(a, b, out_dtype=torch.float32)
+        return torch.matmul(a.float(), b.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.matmul(g, b.float().mT).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.matmul(a.float().mT, g).to(b.dtype)
+        return ga, gb
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as ``jnp.einsum(..., preferred_element_type=jnp.float32)``
+    computes it: a float32 result whatever the operands' dtype, with no
+    rounding of the sums to the operands' precision (a bf16 product would
+    round each sum to bf16).  ``a`` and ``b`` are 2-D, or 3-D with the same
+    batch size, and of one dtype."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.matmul(a, b)
+    return _MatmulF32.apply(a, b)

@@ -1,5 +1,4 @@
-"""Public serving surface of the port: the reference's ``__all__`` less
-``LMServer`` (the LM server is not ported yet)."""
+"""Public serving surface of the port: ``__all__`` is the reference's."""
 from repro_torch.distributed.replication import ReplicationConfig
 from repro_torch.serving.cf_server import (CFServer, OnboardResult,
                                            ServerStats, LEVEL_DEGRADED,
@@ -12,6 +11,7 @@ from repro_torch.serving.dedup import (DedupPlan, dedup_batch, dedup_rows,
                                        fan_out, prompt_hash)
 from repro_torch.serving.guard import (Quarantine, Rejection, RetryPolicy,
                                        call_with_retry)
+from repro_torch.serving.lm_server import LMServer
 from repro_torch.serving.wal import WalRecord, WriteAheadLog
 
 __all__ = [
@@ -22,4 +22,5 @@ __all__ = [
     "Quarantine", "Rejection", "RetryPolicy", "call_with_retry",
     "WalRecord", "WriteAheadLog",
     "DedupPlan", "dedup_batch", "dedup_rows", "fan_out", "prompt_hash",
+    "LMServer",
 ]

@@ -3,16 +3,17 @@
 ``repro_torch.training`` and ``repro_torch.models`` against the
 reference's snapshot in ``tests/test_api_surface.py``.
 
-The port's ``serving.__all__`` is the reference's less ``LMServer`` (not
-ported yet); the config, result and stats dataclasses have the reference's
+The port's ``serving.__all__`` is the reference's (``LMServer`` included);
+the config, result and stats dataclasses have the reference's
 field sets (``ServerStats`` may add timing fields); ``OnboardResult``
 keeps the legacy ``(uid, info)`` protocol with the same answers as the
 reference's.  ``data.__all__`` is the reference's (the recsys streams
 landed with the recsys model), and its rating generators give the
 reference's arrays for the same seed; ``distributed.__all__`` is the
-reference's less its mesh-only names; ``configs.__all__`` and
-``training.__all__`` are the reference's; ``models.__all__`` is the
-reference's less the LM and GNN families.  A CPU server and the
+reference's less its mesh-only names and the GNN rule; ``configs.__all__``
+and ``training.__all__`` are the reference's; ``models.__all__`` is the
+reference's less the GNN family.  Importing the LM surface in a fresh
+interpreter loads no module of ``jax`` or ``repro``.  A CPU server and the
 reference's server onboard the same ratings through the legacy unpacking:
 user ids, rungs, statuses and twin flags exact (a latency is a wall-clock
 reading, so only its key mapping is held).
@@ -21,6 +22,9 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -37,7 +41,7 @@ from tests.conftest import make_ratings
 
 torch.set_num_threads(2)
 
-NOT_PORTED = {"LMServer"}
+NOT_PORTED: set[str] = set()
 CONFIGS = ("ServerConfig", "SnapshotConfig", "WalConfig", "RotationConfig",
            "LadderConfig", "ReplicationConfig", "OnboardResult")
 
@@ -146,12 +150,12 @@ def test_data_plant_twins_matches_reference():
 
 # Every name of ``repro.data`` is ported (the recsys streams last).
 DATA_NOT_PORTED: set[str] = set()
-# Mesh-only names of ``repro.distributed``: they wait for the LM and GNN
-# models and the dry-run group (ROADMAP Queue 1, item 4).
+# Mesh-only names of ``repro.distributed``: they wait for the GNN model and
+# the dry-run group (ROADMAP Queue 1, items 4.2 and 4.4).
 DISTRIBUTED_NOT_PORTED = {"MeshAxes", "named", "zero_extend", "mesh_axes",
-                          "lm_shardings", "gnn_shardings"}
-# The LM and GNN families (ROADMAP Queue 1, item 4).
-MODELS_NOT_PORTED = {"attention", "gnn", "moe", "transformer"}
+                          "gnn_shardings"}
+# The GNN family (ROADMAP Queue 1, item 4.2).
+MODELS_NOT_PORTED = {"gnn"}
 
 
 def test_data_all_is_the_reference_less_recsys_streams():
@@ -175,9 +179,38 @@ def test_distributed_all_is_the_reference_less_mesh_names():
 
 def test_distributed_exports_recsys_shardings():
     import repro_torch.distributed as tdist
-    from repro_torch.distributed.sharding import recsys_shardings
+    from repro_torch.distributed.sharding import (lm_shardings,
+                                                  recsys_shardings)
     assert "recsys_shardings" in tdist.__all__
     assert tdist.recsys_shardings is recsys_shardings
+    assert "lm_shardings" in tdist.__all__
+    assert tdist.lm_shardings is lm_shardings
+
+
+def test_serving_exports_the_lm_server():
+    from repro_torch.serving.lm_server import LMServer
+    assert "LMServer" in serving.__all__ and serving.LMServer is LMServer
+    assert set(serving.__all__) == set(jserving.__all__)
+
+
+def test_the_lm_surface_loads_neither_jax_nor_the_reference():
+    """A fresh interpreter with only ``src`` on its path imports the LM
+    family's modules; ``sys.modules`` then holds no ``jax`` or ``repro``
+    module."""
+    root = Path(__file__).resolve().parents[1]
+    code = ("import sys\n"
+            "from repro_torch.serving import LMServer\n"
+            "from repro_torch.models import attention, moe, transformer\n"
+            "from repro_torch.distributed import lm_shardings\n"
+            "from repro_torch.launch import serve, steps, train\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={"PYTHONPATH": str(root / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr[-2000:]
 
 
 def test_training_all_is_the_reference():
@@ -191,6 +224,7 @@ def test_training_all_is_the_reference():
 
 
 def test_models_all_is_the_reference_less_lm_and_gnn():
+    """Since the LM family landed, the GNN family alone is missing."""
     import repro.models as jmodels
     import repro_torch.models as tmodels
     assert set(tmodels.__all__) == set(jmodels.__all__) - MODELS_NOT_PORTED

@@ -1077,3 +1077,178 @@ def test_xdeepfm_forward_and_train_step_on_card_match_cpu(cuda):
     assert abs(float(cm["loss"]) - float(hm["loss"])) <= 1e-5
     for a, b in zip(leaves(params_to_numpy(cp)), leaves(params_to_numpy(hp))):
         assert np.abs(a - b).max() <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The LM family: tiny configs, the card against the CPU
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("gemma3-1b", "gemma-7b", "granite-20b", "olmoe-1b-7b",
+            "llama4-scout-17b-a16e")
+
+
+def _tiny_lm(arch: str, dtype: str):
+    """The family structure of ``arch`` at tiny widths (the shrink of
+    ``tests/conftest.py::tiny_lm``, which this file cannot import)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import MoEConfig
+    cfg = get_arch(arch).config
+    unit = cfg.global_every or 1
+    n_kv = 1 if cfg.n_kv_heads == 1 else (
+        4 if cfg.n_kv_heads == cfg.n_heads else 2)
+    moe = None if cfg.moe is None else MoEConfig(
+        n_experts=4, top_k=min(2, cfg.moe.top_k), d_ff_expert=64,
+        n_shared=cfg.moe.n_shared)
+    return dataclasses.replace(
+        cfg, n_layers=max(2, 2 * unit) if unit > 1 else 2, d_model=64,
+        n_heads=4, n_kv_heads=n_kv, head_dim=16, d_ff=128, vocab_size=512,
+        moe=moe, window=(8 if cfg.window is not None else None),
+        dtype=dtype)
+
+
+def _lm_close(got, want, dtype, grad: bool = False) -> bool:
+    """float32: within 1e-5 of the largest |want| (TF32 is off, so only
+    the order of float32 sums differs), 1e-4 for a gradient (the bound of
+    ``tests/test_torch_transformer.py``: the router's tiny gradients pass
+    through the gates' renormalisation); bfloat16: the RMS of the
+    difference within 1/16 of the RMS of ``want``, 1/4 for a gradient
+    (bf16 roundings differ between cuBLAS and the CPU, and near-tied
+    routing may flip)."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    if dtype == "float32":
+        return float((got - want).abs().max()) <= \
+            (1e-4 if grad else 1e-5) * float(want.abs().max())
+    rms = lambda t: float(t.square().mean().sqrt())         # noqa: E731
+    return rms(got - want) <= rms(want) * (1 / 4 if grad else 1 / 16)
+
+
+@pytest.mark.parametrize("shape", [(64, 96, 80), (3, 40, 64, 24)])
+def test_matmul_f32_on_card_matches_float32_copies(cuda, shape):
+    """``layers.matmul_f32`` of bf16 operands on the card (cuBLAS with a
+    float32 output) against the product of float32 copies on the CPU:
+    within 1e-6 relative (each product exact, float32 sums in another
+    order); and its gradients, float32 products cast to bf16, equal the
+    CPU's within one bf16 ulp."""
+    from repro_torch.models.layers import matmul_f32
+    rng = np.random.default_rng(len(shape))
+    *batch, m, k, n = shape
+    a = torch.tensor(rng.standard_normal((*batch, m, k)),
+                     dtype=torch.bfloat16)
+    b = torch.tensor(rng.standard_normal((*batch, k, n)),
+                     dtype=torch.bfloat16)
+    want = torch.matmul(a.float(), b.float())
+    ca = a.to(cuda).requires_grad_()
+    cb = b.to(cuda).requires_grad_()
+    got = matmul_f32(ca, cb)
+    assert got.dtype == torch.float32
+    assert float((got.detach().cpu() - want).abs().max()) <= \
+        1e-6 * float(want.abs().max())
+    g = torch.tensor(rng.standard_normal(want.shape), dtype=torch.float32)
+    ga, gb = torch.autograd.grad(got, (ca, cb), g.to(cuda))
+    ha, hb = a.clone().requires_grad_(), b.clone().requires_grad_()
+    wa, wb = torch.autograd.grad(matmul_f32(ha, hb), (ha, hb), g)
+    for x, y in ((ga, wa), (gb, wb)):
+        assert x.dtype == torch.bfloat16
+        assert float((x.cpu().float() - y.float()).abs().max()) <= \
+            float(y.float().abs().max()) * 2 ** -7
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_forward_and_loss_on_card_match_cpu(cuda, arch, dtype):
+    """``forward`` and ``lm_loss`` with its gradients, the same weights on
+    the card and on the CPU (tolerances of ``_lm_close``; the loss within
+    1e-5 relative in float32, 1e-2 in bfloat16)."""
+    from repro_torch.models import transformer as tlm
+    from repro_torch.training.train_loop import value_and_grad
+    from repro_torch.tree import leaves, tree_map
+    cfg = _tiny_lm(arch, dtype)
+    params = tlm.init_params(torch.Generator().manual_seed(0), cfg)
+    card = tree_map(lambda t: t.to(cuda), params)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        h, aux = tlm.forward(card, tokens.to(cuda), cfg)
+        wh, waux = tlm.forward(params, tokens, cfg)
+    assert _lm_close(h, wh, dtype)
+
+    def loss_fn(p, t):
+        return tlm.lm_loss(p, t, cfg, loss_chunk=8)
+    loss, g = value_and_grad(loss_fn, card, tokens.to(cuda))
+    wloss, wg = value_and_grad(loss_fn, params, tokens)
+    rel = 1e-5 if dtype == "float32" else 1e-2
+    assert abs(float(loss) - float(wloss)) <= rel * abs(float(wloss))
+    for a, b in zip(leaves(g), leaves(wg)):
+        if b.abs().max() > 0:
+            assert _lm_close(a, b, dtype, grad=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act,shared", [("swiglu", False), ("geglu", True),
+                                        ("gelu", False)])
+def test_moe_ffn_on_card_matches_cpu(cuda, act, shared, dtype):
+    """``moe_ffn`` at capacity factor 0.5 (choices dropped) on the card
+    against the CPU: the same routing (float32 router logits), ``y`` by
+    ``_lm_close`` and ``aux`` within 1e-6."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models.moe import moe_ffn
+    cfg = MoEConfig(n_experts=8, top_k=2, d_ff_expert=32,
+                    n_shared=int(shared), capacity_factor=0.5)
+    g = torch.Generator().manual_seed(4)
+    gf = 2 if act in ("swiglu", "geglu") else 1
+    dt = getattr(torch, dtype)
+
+    def w(*shape):
+        return (torch.randn(shape, generator=g) * shape[-2] ** -0.5).to(dt)
+    x = torch.randn((4, 32, 64), generator=g).to(dt)
+    router = torch.randn((64, 8), generator=g) * 0.125
+    w_in, w_out = w(8, 64, gf * 32), w(8, 32, 64)
+    sh = (w(64, gf * 32), w(32, 64)) if shared else None
+    y, aux = moe_ffn(x, router, w_in, w_out, sh, cfg, act, group_size=64)
+    cy, caux = moe_ffn(x.to(cuda), router.to(cuda), w_in.to(cuda),
+                       w_out.to(cuda),
+                       None if sh is None else tuple(t.to(cuda) for t in sh),
+                       cfg, act, group_size=64)
+    assert _lm_close(cy, y, dtype)
+    assert abs(float(caux) - float(aux)) <= 1e-6
+
+
+def test_chunked_attention_on_card_matches_cpu(cuda):
+    """``gqa_attention`` on the chunked path (chunk 8, window 4: wholly
+    masked chunks) in bf16 and float32, card against CPU."""
+    from repro_torch.models.attention import gqa_attention
+    g = torch.Generator().manual_seed(5)
+    pos = torch.arange(64, dtype=torch.int32)
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(s, generator=g).to(dt) for s in
+                   ((2, 64, 4, 16), (2, 64, 1, 16), (2, 64, 1, 16)))
+        want = gqa_attention(q, k, v, pos, pos, window=4, chunk=8)
+        got = gqa_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                            pos.to(cuda), pos.to(cuda), window=4, chunk=8)
+        assert torch.isfinite(got.float()).all()
+        assert _lm_close(got, want, str(dt).removeprefix("torch."))
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_generate_on_card_matches_cpu(cuda, arch):
+    """``LMServer.generate`` in float32 on the card and on the CPU with the
+    same weights: equal completions and info, dedup on and off (prompts of
+    12 tokens: the ring full; of 4 for gemma3-1b: its negative positions)."""
+    from repro_torch.models import transformer as tlm
+    from repro_torch.serving import LMServer
+    from repro_torch.tree import tree_map
+    cfg = _tiny_lm(arch, "float32")
+    params = tlm.init_params(torch.Generator().manual_seed(0), cfg)
+    card = LMServer(tree_map(lambda t: t.to(cuda), params), cfg, max_len=32)
+    host = LMServer(params, cfg, max_len=32)
+    assert card.device.type == "cuda" and host.device.type == "cpu"
+    rng = np.random.default_rng(0)
+    for S in ((12, 4) if cfg.window else (12,)):
+        prompts = rng.integers(0, cfg.vocab_size, (3, S)).astype(np.int32)
+        batch = prompts[[0, 1, 0, 2, 1]]
+        for dedup in (True, False):
+            got, info = card.generate(batch, n_new=6, dedup=dedup)
+            want, winfo = host.generate(batch, n_new=6, dedup=dedup)
+            assert info == winfo
+            assert np.array_equal(got, want), (S, dedup)

@@ -4,8 +4,12 @@ reference's exactly for every registered architecture and shape;
 ``build_cell``'s arguments for the recsys and cf families have the
 shapes and dtypes of the reference's ``ShapeDtypeStruct``s (on a one-device
 mesh), its row splits agree with the reference's partition specs for the
-params and inputs, and the lm and gnn families raise until their models
-land."""
+params and inputs; for the lm family (train, prefill and decode cells of
+the five LM architectures) the arguments' shapes and dtypes and the FLOPs
+equal the reference's, the tokens and the cache split by batch rows where
+the reference's specs name a data axis, and the params are replicated;
+the gnn family raises until its model lands.  A train cell of the tiny
+gemma3-1b runs one step from zeros."""
 from __future__ import annotations
 
 import dataclasses
@@ -36,6 +40,7 @@ CASES = [(a, s.name) for a in jcfg.list_archs()
          for s in jcfg.get_arch(a).shapes]
 CELL_CASES = [(a, s) for a, s in CASES
               if jcfg.get_arch(a).family in ("recsys", "cf")]
+LM_CASES = [(a, s) for a, s in CASES if jcfg.get_arch(a).family == "lm"]
 
 
 @pytest.fixture(scope="module")
@@ -108,9 +113,78 @@ def test_train_cell_runs_a_step_on_zeros():
 
 @pytest.mark.parametrize("arch", ["gemma3-1b", "gat-cora"])
 def test_lm_and_gnn_cells_raise(arch):
+    """The gnn family raises until its model lands; the lm family builds
+    every registered shape and raises only on a kind it does not have."""
     spec = tcfg.get_arch(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.build_cell(spec, spec.shapes[0])
+    if spec.family == "gnn":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tsteps.build_cell(spec, spec.shapes[0])
+        return
+    odd = ShapeSpec("odd", "retrieval", {"seq_len": 8, "global_batch": 2})
+    with pytest.raises(ValueError, match="unknown LM"):
+        tsteps.build_cell(spec, odd)
+
+
+@pytest.mark.parametrize("arch,shape", LM_CASES)
+def test_lm_cell_args_match_the_reference(arch, shape, mesh):
+    """Meta arguments of the train, prefill and decode cells at the full
+    registered configs: the reference's shapes and dtypes leaf by leaf,
+    its name and FLOPs; tokens and cache split by batch rows exactly where
+    the reference's specs put a data axis on the batch."""
+    tspec, jspec = tcfg.get_arch(arch), jcfg.get_arch(arch)
+    cell = tsteps.build_cell(tspec, tspec.shape(shape))
+    jcell = jsteps.build_cell(jspec, jspec.shape(shape), mesh)
+    assert cell.name == jcell.name
+    assert cell.model_flops == jcell.model_flops
+    got, want = leaves(cell.args), jax.tree.leaves(jcell.args)
+    assert len(got) == len(want)
+    for t, s in zip(got, want):
+        assert t.is_meta and tuple(t.shape) == s.shape
+        assert str(t.dtype).removeprefix("torch.") == np.dtype(s.dtype).name
+    assert all(isinstance(r, Replicated) for r in leaves(cell.shardings[0]))
+    kind = tspec.shape(shape).kind
+    if kind == "decode":
+        tl, jl = leaves(cell.shardings[1:]), jax.tree.leaves(
+            jcell.in_specs[1:], is_leaf=lambda x: isinstance(x, P))
+        assert len(tl) == len(jl)
+        for rule, spec in zip(tl, jl):
+            # the batch of the cache (axis 1) and of the tokens (axis 0)
+            # takes the data axes; ring_pos and pos name none
+            if isinstance(rule, Rows):
+                assert spec[rule.axis] is not None, (rule, spec)
+            else:
+                assert all(a is None for a in spec), (rule, spec)
+    else:
+        rule = cell.shardings[-1]["tokens"]
+        spec = jcell.in_specs[-1]["tokens"]
+        assert isinstance(rule, Rows) == _row_split(spec)
+
+
+def test_lm_train_cell_runs_a_step_on_zeros():
+    """The tiny gemma3-1b train cell on zeros: the launcher's start; every
+    logit is 0, so the loss is ln V and no gradient moves a param."""
+    spec = reduced_spec("gemma3-1b")
+    tspec = tcfg.get_arch("gemma3-1b")
+    shape = ShapeSpec("train_4k", "train", {"seq_len": 16,
+                                            "global_batch": 2})
+    cfg = _port_config(spec.config)
+    cell = tsteps.build_cell(dataclasses.replace(tspec, config=cfg,
+                                                 shapes=(shape,)), shape)
+    params, opt_state, _ = unflatten(cell.args, [
+        torch.zeros(t.shape, dtype=t.dtype) for t in leaves(cell.args)])
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), dtype=torch.int32)
+    params, opt_state, loss = cell.fn(params, opt_state, {"tokens": tokens})
+    assert abs(float(loss) - np.log(cfg.vocab_size)) <= 1e-5
+    assert int(opt_state.step) == 1
+    assert all(not p.any() for p in leaves(params))
+
+
+def _port_config(jcfg_):
+    from repro_torch.configs.base import LMConfig, MoEConfig
+    kw = {f.name: getattr(jcfg_, f.name) for f in dataclasses.fields(jcfg_)}
+    if jcfg_.moe is not None:
+        kw["moe"] = MoEConfig(**dataclasses.asdict(jcfg_.moe))
+    return LMConfig(**kw)
 
 
 @pytest.mark.parametrize("world_size", [2, 4, 512])

@@ -4,8 +4,12 @@ reduced config of ``tests/conftest.py`` with a small train batch): it
 starts from zeros, as the reference launcher does, writes a checkpoint,
 and resumes from it; from zeros only the wide branch and the last bias
 move, and two steps equal the reference's train step (AdamW, jax.grad)
-from the same zeros on the same batches within 1e-6.  The JAX mesh options
-and the lm family exit with a message; the card is the default device."""
+from the same zeros on the same batches within 1e-6.  The lm family (a
+tiny gemma3-1b and olmoe on ``TokenPipeline`` batches) runs two steps from
+zeros equal to the reference's train step within 1e-6: every gradient is
+zero and the loss stays ln V (plus the aux weight for the MoE).  The JAX
+mesh options and a shape that is not a train shape exit with a message;
+the card is the default device."""
 from __future__ import annotations
 
 import dataclasses
@@ -19,10 +23,12 @@ import jax
 import jax.numpy as jnp
 
 from repro.data import CTRStream as JCTRStream
+from repro.data import TokenPipeline as JTokenPipeline
 from repro.models import recsys as jrec
+from repro.models import transformer as jlm
 from repro.training import AdamW as JAdamW
 from repro_torch.bridge import params_to_numpy
-from repro_torch.configs.base import ShapeSpec
+from repro_torch.configs.base import LMConfig, MoEConfig, ShapeSpec
 from repro_torch.launch import train as launcher
 from repro_torch.training import checkpoint
 from repro_torch.tree import leaves
@@ -35,6 +41,17 @@ BATCH = 32
 
 def _tiny(arch: str):
     spec = reduced_spec(arch)
+    if spec.family == "lm":
+        # the reference's reduced config as the port's LMConfig, at a tiny
+        # train_4k shape
+        j = spec.config
+        kw = {f.name: getattr(j, f.name) for f in dataclasses.fields(j)}
+        if j.moe is not None:
+            kw["moe"] = MoEConfig(**dataclasses.asdict(j.moe))
+        shape = ShapeSpec("train_4k", "train", {"seq_len": 16,
+                                                "global_batch": 4})
+        return dataclasses.replace(spec, config=LMConfig(**kw),
+                                   shapes=(shape,))
     shape = ShapeSpec("train_batch", "train", {"batch": BATCH})
     return dataclasses.replace(spec, shapes=(shape,))
 
@@ -116,8 +133,47 @@ def test_mesh_options_exit_with_a_message(tiny, tmp_path, flag):
 
 
 def test_lm_family_exits_with_a_message(tmp_path):
-    with pytest.raises(SystemExit, match="transformer"):
-        launcher.main(_args("gemma3-1b", tmp_path, 1))
+    """The lm family trains; a prefill or decode shape is not a train
+    shape, and the launcher says so."""
+    with pytest.raises(SystemExit, match="not a train shape"):
+        launcher.main(["--arch", "gemma3-1b", "--shape", "prefill_32k",
+                       "--steps", "1", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "olmoe-1b-7b"])
+def test_lm_launcher_from_zeros_matches_reference_steps(tiny, tmp_path,
+                                                        arch):
+    """Two launcher steps of a tiny LM from zeros against the reference's
+    train step (AdamW(lr=3e-4, weight_decay=0.01) after
+    ``jax.value_and_grad`` of ``lm_loss``) from zeros on the same
+    ``TokenPipeline`` batches, within 1e-6."""
+    spec = tiny(arch)
+    params, opt_state, hist = launcher.main(
+        ["--arch", arch, "--shape", "train_4k", "--steps", "2", "--ckpt",
+         str(tmp_path), "--device", "cpu"])
+    jcfg = reduced_spec(arch).config
+    jp = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype),
+                      jlm.param_structs(jcfg))
+    opt = JAdamW(lr=3e-4, weight_decay=0.01)
+    js = opt.init(jp)
+    pipe = JTokenPipeline(jcfg.vocab_size, 4, 16, seed=0)
+    loss_and_grad = jax.jit(jax.value_and_grad(
+        lambda p, t: jlm.lm_loss(p, t, jcfg)))
+    jhist = []
+    for i in range(2):
+        loss, g = loss_and_grad(jp, jnp.asarray(pipe(i)["tokens"]))
+        jp, js = opt.update(g, js, jp)
+        jhist.append(float(loss))
+    assert np.allclose(hist, jhist, rtol=0, atol=1e-6)
+    # every logit is 0; from a zero router the tied top-k sends every
+    # token to the first k experts, an aux loss of exactly 1
+    moe = spec.config.moe
+    start = np.log(spec.config.vocab_size) + (moe.aux_loss_weight if moe
+                                              else 0.0)
+    assert abs(hist[0] - start) <= 1e-5 and hist[1] == hist[0]
+    assert int(opt_state.step) == 2
+    for a, want in zip(leaves(params_to_numpy(params)), jax.tree.leaves(jp)):
+        assert np.abs(a - np.asarray(want, np.float32)).max() <= 1e-6
 
 
 def test_the_card_is_the_default_device(tiny):
