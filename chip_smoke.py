@@ -134,14 +134,33 @@ Phases, in order; the script exits non-zero as soon as a check fails:
                distinct), 16 new tokens, and its first 2 layers against the
                host.  Counts zeroed before, read after: the LM path
                launches none of the six kernels.  Prints ``{"lm": {...}}``.
- 12. movielens — the same request script at 943 x 1,682 on the card and on
+ 12. GNN family — the four ``gat-cora`` cells through ``steps.build_cell``
+               at their registered sizes, seeded random weights, host data
+               from ``data/graph.py`` padded as ``input_structs`` states
+               (padding edges are self-loops on dead tail nodes, masked
+               out): full_graph_sm (``cora_like``) and ogb_products
+               (2,449,029 nodes, 61,859,140 edges plus self-loops, padded to
+               2,449,408 and 64,308,224; the edge-parallel GAT in message
+               chunks) on a one-rank NCCL process group; minibatch_lg (a
+               ``NeighborSampler`` block of 1,024 roots, fanout (15, 10),
+               over a 232,965-node, 114,615,892-edge graph); molecule (128
+               graphs).  Each: one warm-up and 3 timed AdamW steps on one
+               batch (finite losses, step 0's loss falls); the first
+               step's loss and every gradient leaf on the card against the
+               CPU plain path (ogb_products: the chunked edge-parallel loss
+               against the unchunked plain loss on the card, on the first
+               2**22 edges plus self-loops), within the bounds PERF.md
+               states; one step under the profiler (not molecule).  Counts
+               zeroed before, read after: the GNN path launches none of the
+               six kernels.  Prints ``{"gnn": {...}}``.
+ 13. movielens — the same request script at 943 x 1,682 on the card and on
                the CPU (the plain versions), held to the parity tests'
                tolerances.
- 13. summary — ``{"kernels": [...]}`` (all six kernels, each with the
+ 14. summary — ``{"kernels": [...]}`` (all six kernels, each with the
                launches of the phases that drove it: 4, 6, 7, 8 and 9 for
                the main path's three, 5 for the others and 10 for
-               ``embedding_bag``; phase 11 launches none), the nvidia-smi
-               line, and last ``{"ok": true, "device": {...}}``.
+               ``embedding_bag``; phases 11 and 12 launch none), the
+               nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 It imports neither ``jax`` nor the JAX package, and refuses to run (exit 2)
 without a CUDA device or without ``src/repro_torch`` beside it.
@@ -3116,7 +3135,297 @@ def run_lm(torch, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 12: MovieLens shape, card against CPU
+# Phase 12: the GNN family
+# ---------------------------------------------------------------------------
+
+# Each cell: one warm-up AdamW step and GNN_STEPS timed ones, all on one
+# batch, so step 0's loss must fall.  Card against host (the bounds PERF.md
+# section 6 states): the loss within GNN_LOSS_RTOL relative, each gradient
+# leaf within GNN_GRAD_RTOL of its largest |host value| (index_add_ adds
+# with atomics in no fixed order on the card).
+GNN_STEPS = 3
+GNN_LOSS_RTOL, GNN_GRAD_RTOL = 1e-5, 1e-4
+# ogb_products is too large for the host: there the chunked edge-parallel
+# loss is held to the unchunked plain loss on the card, on the graph's
+# first 2**22 edges plus its self-loops.
+GNN_OGB_CHECK_EDGES = 1 << 22
+# ogbn-products' public split trains on 196,615 of its 2,449,029 nodes.
+OGB_TRAIN_NODES = 196_615
+GNN_LEAVES = [(layer, k) for layer in ("l1", "l2")
+              for k in ("W", "a_src", "a_dst")]
+
+
+def pad_graph(g: dict, n_pad: int, e_pad: int) -> dict:
+    """A graph padded as ``gnn.input_structs`` states: ``n_pad`` nodes
+    (the tail's features zero, label 0, masked out) and ``e_pad`` edges,
+    the padding edges self-loops on the dead tail nodes."""
+    import numpy as np
+    n, e = g["labels"].shape[0], g["edge_src"].shape[0]
+    dead = np.arange(n, n_pad, dtype=np.int32)
+    check(len(dead) > 0 and e <= e_pad, f"{n} nodes and {e} edges pad to "
+          f"{n_pad} and {e_pad} with self-loops on dead tail nodes")
+    loops = dead[np.arange(e_pad - e) % len(dead)]
+    feats = np.zeros((n_pad, g["feats"].shape[1]), np.float32)
+    feats[:n] = g["feats"]
+    labels = np.zeros(n_pad, np.int32)
+    labels[:n] = g["labels"]
+    mask = np.zeros(n_pad, bool)
+    mask[:n] = g["mask"]
+    return {"feats": feats,
+            "edge_src": np.concatenate([g["edge_src"], loops]),
+            "edge_dst": np.concatenate([g["edge_dst"], loops]),
+            "labels": labels, "mask": mask}
+
+
+def gnn_data(shape, structs: dict, n_out: int) -> tuple[dict, int]:
+    """The host batch of one cell, from ``data/graph.py`` and the seed, at
+    the shape's registered size, and its count of real nodes (roots,
+    graphs) a step.  full_graph_sm: ``cora_like``; ogb_products: a
+    power-law graph of 2,449,029 nodes and 61,859,140 edges plus
+    self-loops, 100 features, 47 classes, the public split's count of
+    training nodes; minibatch_lg: a ``NeighborSampler`` block of 1,024
+    roots over a 232,965-node, 114,615,892-edge graph, fanout (15, 10);
+    molecule: ``molecule_batch``."""
+    import numpy as np
+    from repro_torch.data.graph import (CSR, NeighborSampler, cora_like,
+                                        molecule_batch, random_graph)
+    rng = np.random.default_rng(SEED + 70)
+    N = structs["feats"].shape[0]
+    if shape.name == "full_graph_sm":
+        g = cora_like(SEED)
+        return pad_graph(g, N, structs["edge_src"].shape[0]), \
+            g["labels"].shape[0]
+    if shape.kind == "train_full":
+        n, e, d = (shape.dim(k) for k in ("n_nodes", "n_edges", "d_feat"))
+        src, dst = random_graph(SEED, n, e)
+        mask = np.zeros(n, bool)
+        mask[rng.choice(n, OGB_TRAIN_NODES, replace=False)] = True
+        g = {"feats": rng.standard_normal((n, d), dtype=np.float32),
+             "edge_src": src, "edge_dst": dst,
+             "labels": rng.integers(0, n_out, n).astype(np.int32),
+             "mask": mask}
+        return pad_graph(g, N, structs["edge_src"].shape[0]), n
+    if shape.kind == "train_sampled":
+        n, e, d = (shape.dim(k) for k in ("n_nodes", "n_edges", "d_feat"))
+        B = shape.dim("batch_nodes")
+        src, dst = random_graph(SEED, n, e)
+        sampler = NeighborSampler(CSR(src, dst, n), shape.dim("fanout"),
+                                  seed=SEED)
+        del src, dst
+        block = sampler(0, rng.choice(n, B, replace=False))
+        feats = rng.standard_normal((N, d), dtype=np.float32)
+        feats[n:] = 0.0                  # the store's padding rows
+        return {"feats": feats, **block,
+                "labels": rng.integers(0, n_out, B).astype(np.int32)}, B
+    B = shape.dim("batch")
+    return molecule_batch(SEED, B, shape.dim("n_nodes"), shape.dim("n_edges"),
+                          shape.dim("d_feat"), n_out), B
+
+
+def gnn_grads_agree(torch, loss_a, grads_a, loss_b, grads_b) -> dict:
+    """``a`` against ``b``: the loss's relative difference and each
+    gradient leaf's largest difference over its largest |b value|, beside
+    the bounds."""
+    rel = {f"{layer}.{k}": float((grads_a[layer][k].cpu() -
+                                  grads_b[layer][k].cpu()).abs().max()) /
+           float(grads_b[layer][k].abs().max()) for layer, k in GNN_LEAVES}
+    return {"loss": float(loss_a), "loss_ref": float(loss_b),
+            "loss_rel_err": abs(float(loss_a) - float(loss_b)) /
+            abs(float(loss_b)), "loss_bound": GNN_LOSS_RTOL,
+            "grad_rel_err": rel, "grad_bound": GNN_GRAD_RTOL,
+            "ok": abs(float(loss_a) - float(loss_b)) <=
+            GNN_LOSS_RTOL * abs(float(loss_b))
+            and max(rel.values()) <= GNN_GRAD_RTOL}
+
+
+def gnn_loss_fn(cfg, kind: str):
+    """The loss the cell of ``kind`` steps on: the edge-parallel GAT for
+    ``train_full``, else the plain loss of the kind."""
+    from repro_torch.models import gnn
+    from repro_torch.models.gnn_ep import GNNEPInfo, loss_full_ep
+    if kind == "train_full":
+        return lambda p, b: loss_full_ep(p, b, cfg, GNNEPInfo())
+    return lambda p, b: gnn.LOSS_BY_KIND[kind](p, b, cfg)
+
+
+def gnn_card_vs_host(torch, cfg, kind, params, batch, host,
+                     step0_loss: float) -> dict:
+    """The first step's loss and every gradient leaf on the card (the
+    cell's loss) against the plain path on the CPU, from the same inputs
+    and weights."""
+    from repro_torch.models import gnn
+    from repro_torch.training.train_loop import value_and_grad
+    from repro_torch.tree import tree_map
+    loss_c, grads_c = value_and_grad(gnn_loss_fn(cfg, kind), params, batch)
+    loss_h, grads_h = value_and_grad(
+        lambda p, b: gnn.LOSS_BY_KIND[kind](p, b, cfg),
+        tree_map(lambda t: t.cpu(), params),
+        {k: torch.from_numpy(v) for k, v in host.items()})
+    out = gnn_grads_agree(torch, loss_c, grads_c, loss_h, grads_h)
+    out["step0_loss"] = step0_loss
+    out["step0_rel_err"] = abs(step0_loss - float(loss_h)) / abs(
+        float(loss_h))
+    out["ok"] = out["ok"] and out["step0_rel_err"] <= GNN_LOSS_RTOL
+    return out
+
+
+def gnn_ogb_check(torch, dev, cfg, params, batch, host, n: int) -> dict:
+    """ogb_products' chunked edge-parallel loss against the unchunked
+    plain ``gnn.loss_full``, both on the card, on the first
+    ``GNN_OGB_CHECK_EDGES`` edges plus the self-loops of the real nodes."""
+    import numpy as np
+    from repro_torch.models import gnn
+    from repro_torch.models.gnn_ep import edge_chunk
+    from repro_torch.training.train_loop import value_and_grad
+    loops = np.arange(n, dtype=np.int32)
+    sub = dict(batch)
+    for k in ("edge_src", "edge_dst"):
+        sub[k] = torch.as_tensor(np.concatenate(
+            [host[k][:GNN_OGB_CHECK_EDGES], loops]), device=dev)
+    E = sub["edge_src"].shape[0]
+    n_out = params["l2"]["a_src"].shape[1]
+    chunks = -(-E // edge_chunk(cfg.n_heads, n_out, torch.float32))
+    loss_c, grads_c = value_and_grad(gnn_loss_fn(cfg, "train_full"), params,
+                                     sub)
+    torch.cuda.synchronize()
+    loss_p, grads_p = value_and_grad(
+        lambda p, b: gnn.loss_full(p, b, cfg), params, sub)
+    torch.cuda.synchronize()
+    out = gnn_grads_agree(torch, loss_c, grads_c, loss_p, grads_p)
+    out.update(edges=E, layer2_chunks=chunks,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return out
+
+
+def gnn_cell(torch, dev, spec, shape) -> dict:
+    """One cell through ``steps.build_cell``: its host data, the warm-up
+    and timed steps, the card against the host (or, for ogb_products, the
+    chunked against the plain loss on the card), and one step under the
+    profiler (not for molecule)."""
+    import numpy as np
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import gnn
+    from repro_torch.models.gnn_ep import edge_chunk
+    from repro_torch.training.optimizer import AdamW
+    cfg = spec.config
+    cell = build_cell(spec, shape)
+    pstructs, _, structs = cell.args
+    d, n_out = pstructs["l1"]["W"].shape[0], pstructs["l2"]["a_src"].shape[1]
+    t0 = time.perf_counter()
+    host, units = gnn_data(shape, structs, n_out)
+    data_s = time.perf_counter() - t0
+    check(set(host) == set(structs) and all(
+        tuple(host[k].shape) == tuple(s.shape)
+        and host[k].dtype.name == str(s.dtype).removeprefix("torch.")
+        for k, s in structs.items()),
+        f"{cell.name}: host data in {data_s:.1f} s, every input of the "
+        f"shape and dtype input_structs gives "
+        f"({ {k: tuple(v.shape) for k, v in host.items()} })")
+    params = gnn.init_params(torch.Generator(dev).manual_seed(SEED), cfg, d,
+                             n_out)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+    out = {"data_s": data_s, "n_out": n_out, "units_per_step": units,
+           "model_flops": cell.model_flops}
+    if shape.kind == "train_full":
+        E = host["edge_src"].shape[0]
+        out["edges"] = E
+        out["edge_chunks"] = [-(-E // edge_chunk(cfg.n_heads, f,
+                                                 torch.float32))
+                              for f in (cfg.d_hidden, n_out)]
+    if shape.name == "ogb_products":
+        torch.cuda.reset_peak_memory_stats()
+        out["chunked_vs_plain"] = gnn_ogb_check(torch, dev, cfg, params,
+                                                batch, host, units)
+        c = out["chunked_vs_plain"]
+        check(c["ok"], f"{cell.name}: the chunked edge-parallel loss "
+              f"({c['layer2_chunks']} layer-2 chunks) against the plain loss "
+              f"on the card, {c['edges']:,} edges: loss rel err "
+              f"{c['loss_rel_err']:.3g} (bound {GNN_LOSS_RTOL:g}), largest "
+              f"gradient rel err {max(c['grad_rel_err'].values()):.3g} "
+              f"(bound {GNN_GRAD_RTOL:g}); peak {c['peak_gb']:.2f} GB")
+        torch.cuda.empty_cache()
+
+    opt_state = AdamW(lr=3e-4, weight_decay=0.01).init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    p, losses, steps_s = params, [], []
+    for _ in range(1 + GNN_STEPS):
+        t0 = time.perf_counter()
+        p, opt_state, loss = cell.fn(p, opt_state, batch)
+        torch.cuda.synchronize()
+        steps_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"{cell.name}: {1 + GNN_STEPS} AdamW steps on one batch, finite "
+          f"losses {[round(x, 5) for x in losses]}, step 0's loss falls")
+    s_step = pct(steps_s[1:], 0.5)
+    out.update(losses=losses, step_s=steps_s, step_s_p50=s_step,
+               units_per_s=units / s_step,
+               model_tflops_per_s=cell.model_flops / s_step / 1e12,
+               fp32_peak_share=cell.model_flops / s_step / FP32_FLOPS_PER_S,
+               peak_gb=peak)
+    log(f"  {cell.name}: {s_step * 1e3:.2f} ms a step (p50 of {GNN_STEPS}; "
+        f"warm-up {steps_s[0] * 1e3:.1f} ms), {out['units_per_s']:,.0f} "
+        f"{'graphs' if shape.kind == 'train_batched' else 'nodes'}/s, "
+        f"{out['model_tflops_per_s']:.3g} TFLOP/s of gnn_model_flops "
+        f"({out['fp32_peak_share']:.2%} of 67), peak {peak:.2f} GB, host "
+        f"data {data_s:.1f} s")
+    if shape.name != "ogb_products":
+        out["card_vs_host"] = gnn_card_vs_host(
+            torch, cfg, shape.kind, params, batch, host, losses[0])
+        c = out["card_vs_host"]
+        check(c["ok"], f"{cell.name}: card against host: loss rel err "
+              f"{c['loss_rel_err']:.3g} (step 0: {c['step0_rel_err']:.3g}; "
+              f"bound {GNN_LOSS_RTOL:g}), largest gradient rel err "
+              f"{max(c['grad_rel_err'].values()):.3g} (bound "
+              f"{GNN_GRAD_RTOL:g})")
+    if shape.name != "molecule":
+        log("    one step under the profiler:")
+        out["profile"] = device_share(
+            torch, lambda: cell.fn(p, opt_state, batch), reps=1)
+    del p, opt_state, batch, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_gnn(torch, dev) -> dict:
+    """The four ``gat-cora`` cells at their registered sizes through
+    ``steps.build_cell``, the ``train_full`` ones on a one-rank NCCL
+    process group.  Launch counts zeroed at the start and read at the end:
+    the GNN path launches none of the six kernels."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    spec = get_arch("gat-cora")
+    metrics = {}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+    try:
+        for shape in spec.shapes:
+            metrics[shape.name] = gnn_cell(torch, dev, spec, shape)
+    finally:
+        dist.destroy_process_group()
+    counts = launch_counts()
+    check(not any(counts.values()),
+          f"the GNN path launched none of the six kernels ({counts}); the "
+          "kernels line does not count this phase")
+    metrics["kernel_launches"] = counts
+    metrics["host_data_s"] = sum(m["data_s"] for m in metrics.values()
+                                 if isinstance(m, dict) and "data_s" in m)
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    log(f"  host data {metrics['host_data_s']:.1f} s; phase "
+        f"{metrics['phase_s']:.1f} s")
+    return metrics
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: MovieLens shape, card against CPU
 # ---------------------------------------------------------------------------
 
 def movielens_script(torch, device: str):
@@ -3280,10 +3589,14 @@ def main() -> int:
         lm = run_lm(torch, dev)
         torch.cuda.empty_cache()
 
-        log("== 12. MovieLens shape, card against CPU")
+        log("== 12. GNN family at full width")
+        gnn = run_gnn(torch, dev)
+        torch.cuda.empty_cache()
+
+        log("== 13. MovieLens shape, card against CPU")
         run_movielens(torch)
 
-        log("== 13. summary")
+        log("== 14. summary")
         main_phases = (server, durability, replication, buffered, cf_family)
         kernels = []
         for kname in MAIN_PATH + API_KERNELS:
@@ -3307,6 +3620,7 @@ def main() -> int:
         print(json.dumps({"cf_family": cf_family}))
         print(json.dumps({"recsys": recsys}))
         print(json.dumps({"lm": lm}))
+        print(json.dumps({"gnn": gnn}))
         print(json.dumps({"kernels": kernels}))
         print(nvidia_smi_line())
         print(json.dumps({"ok": True, "device": {

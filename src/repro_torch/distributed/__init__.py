@@ -3,9 +3,11 @@
 from repro_torch.distributed.replication import (ReplicaState,
                                                  ReplicatedArena,
                                                  ReplicationConfig)
-from repro_torch.distributed.sharding import (cf_shardings, lm_shardings,
-                                              local_state, recsys_shardings,
+from repro_torch.distributed.sharding import (cf_shardings, gnn_shardings,
+                                              lm_shardings, local_state,
+                                              recsys_shardings,
                                               shard_row_slice)
 
-__all__ = ["cf_shardings", "lm_shardings", "recsys_shardings",
+__all__ = ["cf_shardings", "gnn_shardings", "lm_shardings",
+           "recsys_shardings",
            "ReplicaState", "ReplicatedArena", "ReplicationConfig"]

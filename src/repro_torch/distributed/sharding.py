@@ -12,12 +12,13 @@ and ``shard_map`` refuses such a split.
 ``recsys_shardings`` names the same for the recsys family: the embedding
 tables by rows, everything else replicated.  ``lm_shardings`` names it for
 the LM family: tokens and the decode cache by batch rows, the params
-replicated.
+replicated.  ``gnn_shardings`` names it for the GNN family: node, edge and
+batch rows split, the params replicated.
 
 ``shard_row_slice`` is the fault harness's split, where the last shard
 takes any remainder.  The mesh-only names of the reference module
-(``MeshAxes``, ``named``, ``zero_extend``, the GNN rules) come with the
-models and the dry-run group that use them.
+(``MeshAxes``, ``named``, ``zero_extend``, ``mesh_axes``) come with the
+dry-run group that uses them.
 """
 from __future__ import annotations
 
@@ -175,3 +176,29 @@ def lm_shardings(cfg, world_size: int, kind: str, batch: int,
         raise ValueError(f"unknown LM step kind {kind!r}; have 'train', "
                          "'prefill', 'decode'")
     return out
+
+
+def gnn_shardings(cfg, world_size: int, kind: str) -> dict:
+    """Which rows of each leaf a rank holds for the GNN step ``kind``
+    (``train_full``, ``train_sampled`` or ``train_batched``):
+    ``{"params", "inputs"}``.
+
+    The params are replicated.  Every input splits by rows (axis 0) where
+    the reference's spec puts the data axes or all axes there: the node
+    tensors and the edge lists of ``train_full``, the feature store and the
+    sampled block of ``train_sampled``, the graphs of ``train_batched``.
+    ``cfg`` (a ``GNNConfig``) is taken for the reference's signature; no
+    rule reads it."""
+    if world_size < 1:
+        raise ValueError(f"world_size must be >= 1, got {world_size}")
+    rows = Rows(world_size)
+    params = {layer: {k: Replicated() for k in ("W", "a_src", "a_dst")}
+              for layer in ("l1", "l2")}
+    names = {"train_full": ("feats", "edge_src", "edge_dst", "labels",
+                            "mask"),
+             "train_sampled": ("feats", "roots", "nbr1", "nbr2", "labels"),
+             "train_batched": ("feats", "edge_src", "edge_dst", "labels")}
+    if kind not in names:
+        raise ValueError(f"unknown GNN step kind {kind!r}; have "
+                         f"{', '.join(map(repr, names))}")
+    return {"params": params, "inputs": {k: rows for k in names[kind]}}

@@ -4,8 +4,8 @@ tensors, each leaf's row split over the ranks, and the analytic useful
 FLOPs.  The single dispatch point the trainer shares with the tests.
 
 Train cells run the full train step: loss -> backward -> AdamW update.
-The port builds cells for the ``lm``, ``recsys`` and ``cf`` families;
-``gnn`` raises until its model lands (ROADMAP Queue 1, item 4.2).
+The port builds cells for all four families (``lm``, ``gnn``, ``recsys``,
+``cf``).
 ``jit_cell`` and ``launch/mesh.py`` bind a cell to a TPU mesh; they wait
 with the dry-run group (``dryrun``, ``roofline``) that ports them as
 shape and memory checks on the ``meta`` device.
@@ -19,6 +19,8 @@ from repro_torch.configs.base import ArchSpec, ShapeSpec
 from repro_torch.core.types import CFState
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import cf as cf_mod
+from repro_torch.models import gnn as gnn_mod
+from repro_torch.models.gnn_ep import GNNEPInfo, loss_full_ep
 from repro_torch.models import recsys as rec_mod
 from repro_torch.models import transformer as lm_mod
 from repro_torch.training.optimizer import AdamW, AdamWState
@@ -183,9 +185,34 @@ def _lm_cell(spec: ArchSpec, shape: ShapeSpec, world_size: int) -> Cell:
 
 
 def _gnn_cell(spec: ArchSpec, shape: ShapeSpec, world_size: int) -> Cell:
-    raise NotImplementedError(
-        f"{spec.arch_id}: the port has no GNN model yet (models/gnn; "
-        "ROADMAP Queue 1, item 4, the GNN family)")
+    """An AdamW train step of the shape's loss.  ``train_full`` runs the
+    edge-parallel GAT (``models.gnn_ep``) on the current process group:
+    each rank passes its rows of the edge lists and the node tensors whole
+    (every rank computes the loss from the replicated logits, so labels
+    and mask are replicated too, where the reference's data axes split the
+    loss).  The other kinds run whole on one rank; their shardings say
+    which rows a rank would hold."""
+    cfg = spec.config
+    sh = shd.gnn_shardings(cfg, world_size, shape.kind)
+    d = shape.dim("d_feat")
+    n_out = {"full_graph_sm": 7, "minibatch_lg": 41, "ogb_products": 47,
+             "molecule": 2}.get(shape.name, cfg.n_classes)
+    pstructs = gnn_mod.init_params(None, cfg, d, n_out, device="meta")
+    pspecs = sh["params"]
+    inputs = gnn_mod.input_structs(cfg, shape)
+    if shape.kind == "train_full":
+        for k in ("feats", "labels", "mask"):
+            sh["inputs"][k] = shd.Replicated()
+        info = GNNEPInfo()
+        loss = lambda p, b: loss_full_ep(p, b, cfg, info)   # noqa: E731
+    else:
+        kind_loss = gnn_mod.LOSS_BY_KIND[shape.kind]
+        loss = lambda p, b: kind_loss(p, b, cfg)            # noqa: E731
+    opt, ostructs, ospecs = _opt_structs_and_specs(pstructs, pspecs)
+    return Cell(name=f"{spec.arch_id}/{shape.name}",
+                fn=_train_step(loss, opt), args=(pstructs, ostructs, inputs),
+                shardings=(pspecs, ospecs, sh["inputs"]),
+                model_flops=gnn_model_flops(cfg, shape))
 
 
 def _recsys_cell(spec: ArchSpec, shape: ShapeSpec, world_size: int) -> Cell:

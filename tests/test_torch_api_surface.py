@@ -150,12 +150,11 @@ def test_data_plant_twins_matches_reference():
 
 # Every name of ``repro.data`` is ported (the recsys streams last).
 DATA_NOT_PORTED: set[str] = set()
-# Mesh-only names of ``repro.distributed``: they wait for the GNN model and
-# the dry-run group (ROADMAP Queue 1, items 4.2 and 4.4).
-DISTRIBUTED_NOT_PORTED = {"MeshAxes", "named", "zero_extend", "mesh_axes",
-                          "gnn_shardings"}
-# The GNN family (ROADMAP Queue 1, item 4.2).
-MODELS_NOT_PORTED = {"gnn"}
+# Mesh-only names of ``repro.distributed``: they wait for the dry-run group
+# (ROADMAP Queue 1, item 4.4).
+DISTRIBUTED_NOT_PORTED = {"MeshAxes", "named", "zero_extend", "mesh_axes"}
+# Every model family is ported (the GNN family last).
+MODELS_NOT_PORTED: set[str] = set()
 
 
 def test_data_all_is_the_reference_less_recsys_streams():
@@ -179,12 +178,15 @@ def test_distributed_all_is_the_reference_less_mesh_names():
 
 def test_distributed_exports_recsys_shardings():
     import repro_torch.distributed as tdist
-    from repro_torch.distributed.sharding import (lm_shardings,
+    from repro_torch.distributed.sharding import (gnn_shardings,
+                                                  lm_shardings,
                                                   recsys_shardings)
     assert "recsys_shardings" in tdist.__all__
     assert tdist.recsys_shardings is recsys_shardings
     assert "lm_shardings" in tdist.__all__
     assert tdist.lm_shardings is lm_shardings
+    assert "gnn_shardings" in tdist.__all__
+    assert tdist.gnn_shardings is gnn_shardings
 
 
 def test_serving_exports_the_lm_server():
@@ -195,13 +197,14 @@ def test_serving_exports_the_lm_server():
 
 def test_the_lm_surface_loads_neither_jax_nor_the_reference():
     """A fresh interpreter with only ``src`` on its path imports the LM
-    family's modules; ``sys.modules`` then holds no ``jax`` or ``repro``
-    module."""
+    and GNN families' modules; ``sys.modules`` then holds no ``jax`` or
+    ``repro`` module."""
     root = Path(__file__).resolve().parents[1]
     code = ("import sys\n"
             "from repro_torch.serving import LMServer\n"
             "from repro_torch.models import attention, moe, transformer\n"
-            "from repro_torch.distributed import lm_shardings\n"
+            "from repro_torch.models import gnn, gnn_ep\n"
+            "from repro_torch.distributed import gnn_shardings, lm_shardings\n"
             "from repro_torch.launch import serve, steps, train\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -224,7 +227,7 @@ def test_training_all_is_the_reference():
 
 
 def test_models_all_is_the_reference_less_lm_and_gnn():
-    """Since the LM family landed, the GNN family alone is missing."""
+    """Since the GNN family landed, no model family is missing."""
     import repro.models as jmodels
     import repro_torch.models as tmodels
     assert set(tmodels.__all__) == set(jmodels.__all__) - MODELS_NOT_PORTED

@@ -26,7 +26,13 @@ exact, lists within 1e-6) and the card's buffered burst (bit for bit), its
 collective bytes equal to ``payload_bytes``, the resilient burst healing a
 NaN row bit for bit; ``build_step`` on the similarity kernel against its
 plain path within 1e-5; ``twins_graph`` and ``gaussian`` on card tensors
-equal to the CPU's.
+equal to the CPU's.  The GNN family at small sizes, card against the CPU
+plain path (``chip_smoke.py``'s bounds): layer outputs within 1e-5 of the
+largest |host value|, losses within 1e-5 relative, each gradient leaf
+within 1e-4 of its largest |host value| (``index_add_`` adds with atomics
+in no fixed order on the card); the edge-parallel GAT on a one-rank NCCL
+group, in chunks that do not divide the edge count, against
+``gnn.loss_full`` on the CPU.
 """
 from __future__ import annotations
 
@@ -1252,3 +1258,121 @@ def test_lm_generate_on_card_matches_cpu(cuda, arch):
             want, winfo = host.generate(batch, n_new=6, dedup=dedup)
             assert info == winfo
             assert np.array_equal(got, want), (S, dedup)
+
+
+# ---------------------------------------------------------------------------
+# The GNN family: small graphs, the card against the CPU plain path
+# ---------------------------------------------------------------------------
+
+GNN_OUT_RTOL, GNN_LOSS_RTOL, GNN_GRAD_RTOL = 1e-5, 1e-5, 1e-4
+
+
+def _gnn_cfg():
+    from repro_torch.configs import get_arch
+    return get_arch("gat-cora").config
+
+
+def _gnn_graph(n=300, e=1500, d=24, seed=31) -> dict:
+    """A random graph with self-loops; the last node has no in-edges."""
+    rng = np.random.default_rng(seed)
+    src = np.concatenate([rng.integers(0, n, e), np.arange(n - 1)])
+    dst = np.concatenate([rng.integers(0, n - 1, e), np.arange(n - 1)])
+    return {"feats": rng.normal(size=(n, d)).astype(np.float32),
+            "edge_src": src.astype(np.int32),
+            "edge_dst": dst.astype(np.int32),
+            "labels": rng.integers(0, 7, n).astype(np.int32),
+            "mask": rng.random(n) < 0.5}
+
+
+def _gnn_batch(kind: str) -> tuple[dict, int, int]:
+    """(numpy batch, d_feat, n_out) of a small ``kind`` step."""
+    rng = np.random.default_rng(32)
+    if kind == "train_full":
+        return _gnn_graph(), 24, 7
+    if kind == "train_sampled":
+        n, B, f1, f2 = 500, 64, 5, 4
+        return {"feats": rng.normal(size=(n, 24)).astype(np.float32),
+                "roots": rng.choice(n, B, replace=False).astype(np.int32),
+                "nbr1": rng.integers(0, n, (B, f1)).astype(np.int32),
+                "nbr2": rng.integers(0, n, (B * (1 + f1), f2)).astype(
+                    np.int32),
+                "labels": rng.integers(0, 41, B).astype(np.int32)}, 24, 41
+    from repro_torch.data import molecule_batch
+    return molecule_batch(0, batch=32, n_nodes=12, n_edges=20,
+                          d_feat=16), 16, 2
+
+
+def _gnn_close(got, want, rtol) -> bool:
+    got, want = got.detach().float().cpu(), want.detach().float()
+    return float((got - want).abs().max()) <= rtol * float(
+        want.abs().max())
+
+
+@pytest.mark.parametrize("concat", [True, False])
+def test_gat_layers_on_card_match_cpu(cuda, concat):
+    """``gat_layer_segment`` (a node with no in-edges included) and
+    ``gat_layer_fanout`` on the card against the CPU."""
+    from repro_torch.models import gnn
+    from repro_torch.tree import tree_map
+    g = _gnn_graph()
+    lp = gnn.init_params(torch.Generator().manual_seed(3), _gnn_cfg(),
+                         24)["l1"]
+    lpc = tree_map(lambda t: t.to(cuda), lp)
+    x, src, dst = (torch.as_tensor(g[k]) for k in
+                   ("feats", "edge_src", "edge_dst"))
+    want = gnn.gat_layer_segment(x, src, dst, lp, 8, concat=concat)
+    got = gnn.gat_layer_segment(x.to(cuda), src.to(cuda), dst.to(cuda),
+                                lpc, 8, concat=concat)
+    assert not want[-1].any() and not got[-1].any()
+    assert _gnn_close(got, want, GNN_OUT_RTOL)
+    xs, xn = x[:40], x[40:240].reshape(40, 5, 24)
+    want = gnn.gat_layer_fanout(xs, xn, lp, 8, concat=concat)
+    got = gnn.gat_layer_fanout(xs.to(cuda), xn.to(cuda), lpc, 8,
+                               concat=concat)
+    assert _gnn_close(got, want, GNN_OUT_RTOL)
+
+
+@pytest.mark.parametrize("kind", ["train_full", "train_sampled",
+                                  "train_batched"])
+def test_gnn_losses_and_grads_on_card_match_cpu(cuda, kind):
+    """Each loss of ``LOSS_BY_KIND`` and every gradient leaf, card against
+    CPU, from the same weights and inputs."""
+    from repro_torch.models import gnn
+    from repro_torch.training.train_loop import value_and_grad
+    from repro_torch.tree import leaves, tree_map
+    batch, d, n_out = _gnn_batch(kind)
+    cfg = _gnn_cfg()
+    params = gnn.init_params(torch.Generator().manual_seed(4), cfg, d, n_out)
+    fn = gnn.LOSS_BY_KIND[kind]
+    tb = {k: torch.as_tensor(v) for k, v in batch.items()}
+    want, wg = value_and_grad(lambda p, b: fn(p, b, cfg), params, tb)
+    got, gg = value_and_grad(lambda p, b: fn(p, b, cfg),
+                             tree_map(lambda t: t.to(cuda), params),
+                             {k: v.to(cuda) for k, v in tb.items()})
+    assert abs(float(got) - float(want)) <= GNN_LOSS_RTOL * abs(float(want))
+    for a, b in zip(leaves(gg), leaves(wg)):
+        assert a.is_cuda and _gnn_close(a, b, GNN_GRAD_RTOL)
+
+
+def test_edge_parallel_gat_on_card_matches_plain_cpu(nccl1, monkeypatch):
+    """``gnn_ep.loss_full_ep`` on a one-rank NCCL group, its message sum in
+    chunks of 97 edges (1,799 edges: none divides them), against the plain
+    ``gnn.loss_full`` on the CPU: the loss and every gradient leaf."""
+    from repro_torch.models import gnn, gnn_ep
+    from repro_torch.training.train_loop import value_and_grad
+    from repro_torch.tree import leaves, tree_map
+    cfg = _gnn_cfg()
+    batch, d, n_out = _gnn_batch("train_full")
+    params = gnn.init_params(torch.Generator().manual_seed(5), cfg, d, n_out)
+    tb = {k: torch.as_tensor(v) for k, v in batch.items()}
+    want, wg = value_and_grad(lambda p, b: gnn.loss_full(p, b, cfg), params,
+                              tb)
+    monkeypatch.setattr(gnn_ep, "MSG_CHUNK_BYTES", 97 * 8 * 8 * 4)
+    info = gnn_ep.GNNEPInfo()
+    got, gg = value_and_grad(
+        lambda p, b: gnn_ep.loss_full_ep(p, b, cfg, info),
+        tree_map(lambda t: t.to(nccl1), params),
+        {k: v.to(nccl1) for k, v in tb.items()})
+    assert abs(float(got) - float(want)) <= GNN_LOSS_RTOL * abs(float(want))
+    for a, b in zip(leaves(gg), leaves(wg)):
+        assert a.is_cuda and _gnn_close(a, b, GNN_GRAD_RTOL)

@@ -8,8 +8,12 @@ params and inputs; for the lm family (train, prefill and decode cells of
 the five LM architectures) the arguments' shapes and dtypes and the FLOPs
 equal the reference's, the tokens and the cache split by batch rows where
 the reference's specs name a data axis, and the params are replicated;
-the gnn family raises until its model lands.  A train cell of the tiny
-gemma3-1b runs one step from zeros."""
+for the gnn family (all four registered shapes) the same, the inputs
+split by rows where the reference's specs do, except that ``train_full``
+holds feats, labels and mask whole (its edge-parallel loss reads them on
+every rank).  A train cell of the tiny gemma3-1b runs one step from
+zeros; one of the tiny molecule cell from seeded weights equals the
+reference's step within float32 tolerance."""
 from __future__ import annotations
 
 import dataclasses
@@ -41,6 +45,7 @@ CASES = [(a, s.name) for a in jcfg.list_archs()
 CELL_CASES = [(a, s) for a, s in CASES
               if jcfg.get_arch(a).family in ("recsys", "cf")]
 LM_CASES = [(a, s) for a, s in CASES if jcfg.get_arch(a).family == "lm"]
+GNN_CASES = [(a, s) for a, s in CASES if jcfg.get_arch(a).family == "gnn"]
 
 
 @pytest.fixture(scope="module")
@@ -113,16 +118,74 @@ def test_train_cell_runs_a_step_on_zeros():
 
 @pytest.mark.parametrize("arch", ["gemma3-1b", "gat-cora"])
 def test_lm_and_gnn_cells_raise(arch):
-    """The gnn family raises until its model lands; the lm family builds
-    every registered shape and raises only on a kind it does not have."""
+    """The lm and gnn families build every registered shape and raise only
+    on a kind they do not have."""
     spec = tcfg.get_arch(arch)
-    if spec.family == "gnn":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsteps.build_cell(spec, spec.shapes[0])
-        return
-    odd = ShapeSpec("odd", "retrieval", {"seq_len": 8, "global_batch": 2})
-    with pytest.raises(ValueError, match="unknown LM"):
+    odd = ShapeSpec("odd", "retrieval", {"seq_len": 8, "global_batch": 2,
+                                         "d_feat": 4})
+    with pytest.raises(ValueError, match=f"unknown {spec.family.upper()}"):
         tsteps.build_cell(spec, odd)
+
+
+@pytest.mark.parametrize("arch,shape", GNN_CASES)
+def test_gnn_cell_args_match_the_reference(arch, shape, mesh):
+    """Every GNN cell builds: its meta arguments have the reference's
+    shapes and dtypes leaf by leaf, its name and FLOPs are the
+    reference's, the params are replicated, and each input splits by rows
+    exactly where the reference's spec does, except that ``train_full``
+    holds labels and mask whole as well as feats."""
+    tspec, jspec = tcfg.get_arch(arch), jcfg.get_arch(arch)
+    cell = tsteps.build_cell(tspec, tspec.shape(shape))
+    jcell = jsteps.build_cell(jspec, jspec.shape(shape), mesh)
+    assert cell.name == jcell.name
+    assert cell.model_flops == jcell.model_flops
+    got, want = leaves(cell.args), jax.tree.leaves(jcell.args)
+    assert len(got) == len(want)
+    for t, s in zip(got, want):
+        assert t.is_meta and tuple(t.shape) == s.shape
+        assert str(t.dtype).removeprefix("torch.") == np.dtype(s.dtype).name
+    assert all(isinstance(r, Replicated) for r in leaves(cell.shardings[0]))
+    rules, specs = cell.shardings[-1], jcell.in_specs[-1]
+    assert list(rules) == list(specs)
+    full = tspec.shape(shape).kind == "train_full"
+    if full:
+        assert specs["feats"] == P(None, None)
+    for k, rule in rules.items():
+        if full and k in ("labels", "mask"):
+            assert isinstance(rule, Replicated)
+            continue
+        assert isinstance(rule, Rows) == _row_split(specs[k]), (k, rule)
+
+
+def test_gnn_molecule_cell_step_matches_the_reference():
+    """One AdamW step of the molecule cell at a tiny batch on the CPU,
+    from the reference's seeded weights: the loss within 1e-6 relative and
+    every new param within 1e-6 of the reference's step."""
+    from repro.data import molecule_batch
+    from repro.models import gnn as jgnn
+    from repro.training.optimizer import AdamW as JAdamW
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.training.optimizer import AdamW
+    dims = {"n_nodes": 10, "n_edges": 14, "batch": 8, "d_feat": 16}
+    tspec, jspec = tcfg.get_arch("gat-cora"), jcfg.get_arch("gat-cora")
+    tshape = ShapeSpec("molecule", "train_batched", dims)
+    jshape = jcfg.base.ShapeSpec("molecule", "train_batched", dims)
+    cell = tsteps.build_cell(dataclasses.replace(tspec, shapes=(tshape,)),
+                             tshape)
+    jcell = jsteps.build_cell(dataclasses.replace(jspec, shapes=(jshape,)),
+                              jshape, _mk((1, 1), ("data", "model")))
+    jp = jgnn.init_params(jax.random.PRNGKey(3), jspec.config, 16, 2)
+    batch = molecule_batch(0, batch=8, n_nodes=10, n_edges=14, d_feat=16)
+    jparams, _, jloss = jcell.fn(jp, JAdamW(lr=3e-4, weight_decay=0.01)
+                                 .init(jp), batch)
+    params = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    params, opt_state, loss = cell.fn(
+        params, AdamW(lr=3e-4, weight_decay=0.01).init(params),
+        {k: torch.as_tensor(v) for k, v in batch.items()})
+    assert abs(float(loss) - float(jloss)) <= 1e-6 * abs(float(jloss))
+    assert int(opt_state.step) == 1
+    for t, j in zip(leaves(params), jax.tree.leaves(jparams)):
+        assert float(np.abs(t.numpy() - np.asarray(j)).max()) <= 1e-6
 
 
 @pytest.mark.parametrize("arch,shape", LM_CASES)
