@@ -126,14 +126,29 @@ Phases, in order; the script exits non-zero as soon as a check fails:
                cut to 256 tokens and 4 decode steps on the card against the
                host's plain path with the same weights (logits within a
                stated bf16 bound, greedy tokens equal except near-ties);
-               (c) the reference's cells through ``steps.build_cell``:
-               prefill_32k (batch cut from 32 to 1), decode_32k and
-               long_500k at full shape (8 steps each), train_4k (batch cut
+               (c) the reference's cells through ``steps.build_cell`` on a
+               (1, 1) mesh: prefill_32k (batch cut from 32 to 1),
+               decode_32k and long_500k at full shape (8 steps each),
+               train_4k (batch cut
                from 256 to 8; 2 steps, finite losses, peak within 60 GB);
                (d) OLMoE-1B-7B serving 8 prompts of 1,024 tokens (4
                distinct), 16 new tokens, and its first 2 layers against the
                host.  Counts zeroed before, read after: the LM path
                launches none of the six kernels.  Prints ``{"lm": {...}}``.
+ 11b. MoE-EP  — OLMoE-1B-7B on a (1, 1) mesh over a one-rank NCCL group,
+               where the reference's rule routes every train and prefill
+               MoE layer through ``models.moe_ep``: the hooks' ``moe_ep``
+               checked; ``moe_ffn_ep`` against ``moe_ffn`` on one
+               full-width layer at 4,096 tokens and capacity factor E/k
+               (nothing drops), output, aux loss and the four gradients
+               within the bounds PERF.md states, each forward timed; then
+               through ``steps.build_cell`` prefill_32k at 16 layers (batch
+               cut from 32 to 1) and train_4k (cut to 4 of 16 layers and
+               batch 8 of 256; 2 AdamW steps, finite losses, peak within
+               70 GB), each timed by CUDA events and once under the
+               profiler, every ``moe_ffn_ep`` call counted.  Counts zeroed
+               before, read after: the path launches none of the six
+               kernels.  Prints ``{"moe_ep": {...}}``.
  12. GNN family — the four ``gat-cora`` cells through ``steps.build_cell``
                at their registered sizes, seeded random weights, host data
                from ``data/graph.py`` padded as ``input_structs`` states
@@ -159,7 +174,7 @@ Phases, in order; the script exits non-zero as soon as a check fails:
  14. summary — ``{"kernels": [...]}`` (all six kernels, each with the
                launches of the phases that drove it: 4, 6, 7, 8 and 9 for
                the main path's three, 5 for the others and 10 for
-               ``embedding_bag``; phases 11 and 12 launch none), the
+               ``embedding_bag``; phases 11, 11b and 12 launch none), the
                nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 It imports neither ``jax`` nor the JAX package, and refuses to run (exit 2)
@@ -1799,6 +1814,7 @@ def run_cf_family(torch, dev, R_host, buffered_ms: float) -> dict:
     from repro_torch.core.rotation import unsorted_rows
     from repro_torch.core.twinsearch import make_probes
     from repro_torch.distributed import local_state
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import cf
 
@@ -1825,6 +1841,7 @@ def run_cf_family(torch, dev, R_host, buffered_ms: float) -> dict:
                             world_size=1, device_id=torch.device(
                                 "cuda", torch.cuda.current_device()))
     try:
+        mesh_info = (("data", "model"), make_mesh((1, 1), ("data", "model")))
         local = local_state(base, 0, dist.get_world_size())
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1836,7 +1853,7 @@ def run_cf_family(torch, dev, R_host, buffered_ms: float) -> dict:
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        out = cf.onboard_step(local, R_new, probes, cfg, distributed=True)
+        out = cf.onboard_step(local, R_new, probes, cfg, mesh_info=mesh_info)
         torch.cuda.synchronize()
         sharded_ms = (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
@@ -1941,7 +1958,7 @@ def run_cf_family(torch, dev, R_host, buffered_ms: float) -> dict:
 
         # The registered config's tolerance, 0.0, on the same inputs.
         out0 = cf.onboard_step(local, R_new, probes, spec.config,
-                               distributed=True)
+                               mesh_info=mesh_info)
         ref0 = onboard_batch_buffered(base, R_new, probes, s_max=s_max,
                                       tol=spec.config.sim_tol)
         check(all(torch.equal(getattr(out0[2], f), getattr(ref0[2], f))
@@ -2452,12 +2469,14 @@ def recsys_launcher(torch) -> dict:
     import logging
     import shutil
     from repro_torch.launch import train as launcher
+    from repro_torch.launch.mesh import one_rank_mesh
     from repro_torch.launch.steps import build_cell
     from repro_torch.configs import get_arch
     from repro_torch.training import checkpoint
     from repro_torch.tree import leaves
     spec = get_arch("autoint")
-    cell = build_cell(spec, spec.shape("train_batch"))
+    with one_rank_mesh("cpu") as mesh:            # shapes only
+        cell = build_cell(spec, spec.shape("train_batch"), mesh)
     ckpt_bytes = sum(t.numel() * t.element_size()
                      for t in leaves(cell.args[:2]))
     del cell
@@ -2898,7 +2917,7 @@ def lm_card_vs_host(torch, dev, cfg, params, label: str, rows: int,
     return m
 
 
-def lm_cells(torch, dev, spec, params) -> dict:
+def lm_cells(torch, dev, spec, params, mesh) -> dict:
     """The reference's four cells of ``spec`` through
     ``steps.build_cell``, each run: prefill_32k (batch cut to
     ``LM_PREFILL_BATCH``), decode_32k and long_500k at full shape
@@ -2919,7 +2938,7 @@ def lm_cells(torch, dev, spec, params) -> dict:
     shape = ShapeSpec(full.name, full.kind, {**full.dims,
                                              "global_batch":
                                              LM_PREFILL_BATCH})
-    cell = build_cell(spec, shape)
+    cell = build_cell(spec, shape, mesh)
     tokens = torch.as_tensor(TokenPipeline(cfg.vocab_size, LM_PREFILL_BATCH,
                                            S, seed=2)(0)["tokens"],
                              device=dev)
@@ -2964,7 +2983,7 @@ def lm_cells(torch, dev, spec, params) -> dict:
     for name in ("decode_32k", "long_500k"):
         shape = spec.shape(name)
         B, S = shape.dim("global_batch"), shape.dim("seq_len")
-        cell = build_cell(spec, shape)
+        cell = build_cell(spec, shape, mesh)
         _p, cache_s, _t, _pos = cell.args
         start = S - LM_CELL_STEPS
         cache = {}
@@ -3018,7 +3037,7 @@ def lm_cells(torch, dev, spec, params) -> dict:
     S = full.dim("seq_len")
     shape = ShapeSpec(full.name, full.kind, {**full.dims,
                                              "global_batch": LM_TRAIN_BATCH})
-    cell = build_cell(spec, shape)
+    cell = build_cell(spec, shape, mesh)
     pipe = TokenPipeline(cfg.vocab_size, LM_TRAIN_BATCH, S, seed=0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3066,6 +3085,7 @@ def run_lm(torch, dev) -> dict:
     import dataclasses
     from repro_torch.configs import get_arch
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import one_rank_mesh
     from repro_torch.models import transformer as lm
     from repro_torch.tree import leaves
     t_phase = time.perf_counter()
@@ -3089,7 +3109,8 @@ def run_lm(torch, dev) -> dict:
                                        "gemma3-1b serve", **LM_SERVE)
     metrics["gemma3_card_vs_host"] = lm_card_vs_host(
         torch, dev, cfg, params, "gemma3-1b", **LM_HOST)
-    metrics["gemma3_cells"] = lm_cells(torch, dev, spec, params)
+    with one_rank_mesh() as mesh:
+        metrics["gemma3_cells"] = lm_cells(torch, dev, spec, params, mesh)
     del params
     torch.cuda.empty_cache()
 
@@ -3129,6 +3150,285 @@ def run_lm(torch, dev) -> dict:
         "olmoe_card_vs_host": f"first {MOE_HOST_LAYERS} of 16 layers",
         "gemma3_card_vs_host": f"{LM_HOST['rows']} prompts cut to "
                                f"{LM_HOST['prompt_len']} tokens"}
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase {metrics['phase_s']:.1f} s")
+    return metrics
+
+
+# ---------------------------------------------------------------------------
+# Phase 11b: OLMoE through expert parallelism (models.moe_ep)
+# ---------------------------------------------------------------------------
+
+MOE_EP_PREFILL_BATCH = 1                  # of prefill_32k's 32
+# train_4k cut from 16 layers to 4 (16 bytes a param: bf16 params and
+# gradients, fp32 master and two moments; 16 layers would take 110.7 GB)
+# and from batch 256 to 8 (32,768 tokens).
+MOE_EP_TRAIN_LAYERS, MOE_EP_TRAIN_BATCH, MOE_EP_TRAIN_STEPS = 4, 8, 2
+MOE_EP_TRAIN_BUDGET_GB = 70.0
+# moe_ffn_ep against moe_ffn on one full-width layer in bf16 at 4,096
+# tokens and capacity factor E/k, where no choice drops in either: both
+# compute the same per-token expert products (the bound PERF.md section 6
+# states): the output's and each gradient's RMS difference within 1/64 of
+# the plain path's RMS, the aux loss within 1e-5 relative.
+MOE_EP_CHECK_TOKENS = 4096
+MOE_EP_RMS_FRAC = 1 / 64
+
+
+def rms_ratio(torch, got, want) -> float:
+    got, want = got.detach().float(), want.detach().float()
+    den = float(want.square().mean().sqrt())
+    return float((got - want).square().mean().sqrt()) / max(den, 1e-30)
+
+
+def moe_ep_vs_plain(torch, dev, cfg, info) -> dict:
+    """One full-width OLMoE layer's MoE at ``MOE_EP_CHECK_TOKENS`` tokens:
+    ``moe_ffn_ep`` on the (1, 1) mesh against ``moe_ffn`` (one group), the
+    output, the aux loss and the gradients of x, router, w_in and w_out;
+    and each path's forward timed."""
+    import dataclasses
+    from repro_torch.models import transformer as lm
+    from repro_torch.models.moe import moe_ffn
+    from repro_torch.models.moe_ep import moe_ffn_ep
+    m = cfg.moe
+    mcfg = dataclasses.replace(m, capacity_factor=m.n_experts / m.top_k)
+    one = dataclasses.replace(cfg, n_layers=1)
+    gen = torch.Generator(dev).manual_seed(SEED + 70)
+    lp = {k: v[0] for k, v in lm.init_params(gen, one)["layers"].items()}
+    x = torch.randn((1, MOE_EP_CHECK_TOKENS, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    ct = torch.randn(x.shape, generator=gen, device=dev)
+    ins = (x, lp["router"], lp["w_in_e"], lp["w_out_e"])
+    paths = {
+        "moe_ffn": lambda *a: moe_ffn(*a[:4], None, mcfg, cfg.act,
+                                      group_size=MOE_EP_CHECK_TOKENS),
+        "moe_ffn_ep": lambda *a: moe_ffn_ep(*a, mcfg, cfg.act, info)}
+    res, ms = {}, {}
+    for name, fn in paths.items():
+        leaves_ = [t.detach().clone().requires_grad_() for t in ins]
+        y, aux = fn(*leaves_)
+        grads = torch.autograd.grad((y.float() * ct).sum() + aux, leaves_)
+        res[name] = (y.detach(), float(aux.detach()), grads)
+        del y, grads, leaves_
+        with torch.no_grad():
+            ms[name] = cuda_ms(lambda: fn(*ins), reps=5)
+    (wy, waux, wg), (y, aux, g) = res["moe_ffn"], res["moe_ffn_ep"]
+    out = {"tokens": MOE_EP_CHECK_TOKENS,
+           "capacity_factor": mcfg.capacity_factor,
+           "out_rms_ratio": rms_ratio(torch, y, wy),
+           "out_max_diff": float((y.float() - wy.float()).abs().max()),
+           "aux": aux, "aux_plain": waux,
+           "aux_rel_err": abs(aux - waux) / abs(waux),
+           "grad_rms_ratio": {k: rms_ratio(torch, a, b) for k, a, b in
+                              zip(("x", "router", "w_in", "w_out"), g, wg)},
+           "fwd_ms": ms["moe_ffn_ep"], "plain_fwd_ms": ms["moe_ffn"]}
+    check(out["out_rms_ratio"] <= MOE_EP_RMS_FRAC
+          and out["aux_rel_err"] <= 1e-5
+          and max(out["grad_rms_ratio"].values()) <= MOE_EP_RMS_FRAC,
+          f"moe_ffn_ep = moe_ffn on one full-width layer (bf16, "
+          f"{MOE_EP_CHECK_TOKENS} tokens, capacity factor "
+          f"{mcfg.capacity_factor:g}: nothing drops): output RMS diff "
+          f"{out['out_rms_ratio']:.3g} of its RMS (largest diff "
+          f"{out['out_max_diff']:.3g}), aux rel err "
+          f"{out['aux_rel_err']:.3g}, gradients' RMS diffs "
+          f"{ {k: round(v, 6) for k, v in out['grad_rms_ratio'].items()} } "
+          f"(bounds {MOE_EP_RMS_FRAC:.4g}, 1e-5); forward "
+          f"{ms['moe_ffn_ep']:.2f} ms against {ms['moe_ffn']:.2f} ms")
+    return out
+
+
+def moe_ep_prefill(torch, dev, spec, mesh, calls: list) -> dict:
+    """prefill_32k at full depth, batch ``MOE_EP_PREFILL_BATCH``, through
+    ``build_cell`` on the (1, 1) mesh: timed by CUDA events, then once
+    under the profiler."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import transformer as lm
+    cfg = spec.config
+    full = spec.shape("prefill_32k")
+    S = full.dim("seq_len")
+    shape = ShapeSpec(full.name, full.kind,
+                      {**full.dims, "global_batch": MOE_EP_PREFILL_BATCH})
+    cell = build_cell(spec, shape, mesh)
+    params = lm.init_params(torch.Generator(dev).manual_seed(SEED), cfg)
+    batch = {"tokens": torch.as_tensor(TokenPipeline(
+        cfg.vocab_size, MOE_EP_PREFILL_BATCH, S, seed=2)(0)["tokens"],
+        device=dev)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = torch.cuda.Event
+    start, end = ev(enable_timing=True), ev(enable_timing=True)
+    calls[0] = 0
+    start.record()
+    with torch.no_grad():
+        logits, cache = cell.fn(params, batch)
+    end.record()
+    torch.cuda.synchronize()
+    ms, n_calls = start.elapsed_time(end), calls[0]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    T = MOE_EP_PREFILL_BATCH * S
+    C = max(8, -(-int(T * cfg.moe.top_k * cfg.moe.capacity_factor /
+                      cfg.moe.n_experts) // 8) * 8)
+    check(bool(torch.isfinite(logits).all())
+          and logits.shape == (MOE_EP_PREFILL_BATCH, cfg.vocab_size)
+          and cache["kg"].shape[2] == S and n_calls == cfg.n_layers,
+          f"OLMoE prefill_32k through moe_ffn_ep ({cfg.n_layers} layers, "
+          f"batch {MOE_EP_PREFILL_BATCH} of {full.dim('global_batch')}, "
+          f"{T} tokens, capacity {C} a expert): finite logits, the cache "
+          f"{S} long, {n_calls} moe_ffn_ep calls")
+    flops = cell.model_flops + 4.0 * MOE_EP_PREFILL_BATCH * cfg.n_heads * \
+        S * S * cfg.head_dim * cfg.n_layers
+    out = {"layers": cfg.n_layers, "batch": MOE_EP_PREFILL_BATCH,
+           "seq_len": S, "tokens": T, "capacity": C,
+           "dispatch_gb_a_layer": cfg.moe.n_experts * C * cfg.d_model * 2
+           / 1e9, "ms": ms, "tokens_per_s": T / ms * 1e3,
+           "moe_ffn_ep_calls": n_calls, "model_flops": cell.model_flops,
+           "flops": flops, "bound_ms": flops / BF16_FLOPS_PER_S * 1e3,
+           "peak_gb": peak}
+    log(f"  prefill_32k: {ms:.0f} ms (bound {out['bound_ms']:.0f} ms), "
+        f"{out['tokens_per_s']:.0f} tokens/s, {n_calls} moe_ffn_ep calls, "
+        f"peak {peak:.2f} GB; again under the profiler:")
+    del logits, cache
+    with torch.no_grad():
+        out["profile"] = device_share(torch, lambda: cell.fn(params, batch),
+                                      reps=1)
+    del params, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_ep_train(torch, dev, spec, mesh, calls: list) -> dict:
+    """train_4k cut to ``MOE_EP_TRAIN_LAYERS`` layers and batch
+    ``MOE_EP_TRAIN_BATCH``: ``MOE_EP_TRAIN_STEPS`` AdamW steps through
+    ``build_cell`` on the (1, 1) mesh from seeded weights, each timed by
+    CUDA events, then one more under the profiler."""
+    import dataclasses
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import transformer as lm
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.tree import leaves
+    cfg = dataclasses.replace(spec.config, n_layers=MOE_EP_TRAIN_LAYERS)
+    spec = dataclasses.replace(spec, config=cfg)
+    full = spec.shape("train_4k")
+    S = full.dim("seq_len")
+    shape = ShapeSpec(full.name, full.kind,
+                      {**full.dims, "global_batch": MOE_EP_TRAIN_BATCH})
+    cell = build_cell(spec, shape, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(torch.Generator(dev).manual_seed(SEED), cfg)
+    n_params = sum(t.numel() for t in leaves(params))
+    opt_state = AdamW(lr=3e-4, weight_decay=0.01).init(params)
+    pipe = TokenPipeline(cfg.vocab_size, MOE_EP_TRAIN_BATCH, S, seed=0)
+    state = [params, opt_state]
+    del params, opt_state
+
+    def step(batch):
+        state[0], state[1], loss = cell.fn(state[0], state[1], batch)
+        return loss
+
+    ev = torch.cuda.Event
+    losses, steps_ms, n_calls = [], [], []
+    for i in range(MOE_EP_TRAIN_STEPS):
+        batch = {"tokens": torch.as_tensor(pipe(i)["tokens"], device=dev)}
+        torch.cuda.synchronize()
+        start, end = ev(enable_timing=True), ev(enable_timing=True)
+        calls[0] = 0
+        start.record()
+        loss = step(batch)
+        end.record()
+        torch.cuda.synchronize()
+        losses.append(float(loss))
+        steps_ms.append(start.elapsed_time(end))
+        n_calls.append(calls[0])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want_calls = cfg.n_layers * (2 if cfg.remat else 1)
+    check(all(math.isfinite(x) for x in losses) and peak <=
+          MOE_EP_TRAIN_BUDGET_GB and all(c == want_calls for c in n_calls),
+          f"OLMoE train_4k through moe_ffn_ep ({cfg.n_layers} of 16 layers, "
+          f"{n_params:,} params, batch {MOE_EP_TRAIN_BATCH} of "
+          f"{full.dim('global_batch')}, S = {S}, remat, AdamW): "
+          f"{MOE_EP_TRAIN_STEPS} steps, finite losses "
+          f"{[round(x, 4) for x in losses]}, moe_ffn_ep calls a step "
+          f"{n_calls} (forward and the remat recompute: {want_calls}), "
+          f"peak {peak:.2f} GB within {MOE_EP_TRAIN_BUDGET_GB:.0f}")
+    s_step = steps_ms[-1] / 1e3
+    tokens = MOE_EP_TRAIN_BATCH * S
+    out = {"layers": cfg.n_layers, "params": n_params,
+           "batch": MOE_EP_TRAIN_BATCH, "seq_len": S, "tokens": tokens,
+           "losses": losses, "step_ms": steps_ms,
+           "moe_ffn_ep_calls": n_calls, "tokens_per_s": tokens / s_step,
+           "model_flops": cell.model_flops,
+           "model_tflops_per_s": cell.model_flops / s_step / 1e12,
+           "bf16_peak_share": cell.model_flops / s_step / BF16_FLOPS_PER_S,
+           "peak_gb": peak}
+    log(f"  train_4k ({cfg.n_layers} layers): {s_step:.3f} s a step (first "
+        f"{steps_ms[0] / 1e3:.3f} s), {out['tokens_per_s']:.0f} tokens/s, "
+        f"{out['model_tflops_per_s']:.1f} TFLOP/s of lm_model_flops "
+        f"({out['bf16_peak_share']:.1%} of the 989 TFLOP/s bf16 peak), "
+        f"peak {peak:.2f} GB; one more step under the profiler:")
+    out["profile"] = device_share(torch, lambda: step(batch), reps=1)
+    del state[:], batch, loss
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_moe_ep(torch, dev) -> dict:
+    """OLMoE-1B-7B's train and prefill cells on a (1, 1) mesh over a
+    one-rank NCCL group, where the reference's rule (experts divide the
+    model axis, a train or prefill kind) routes every MoE layer through
+    ``models.moe_ep``: the hooks checked, ``moe_ffn_ep`` held to ``moe_ffn``
+    on one layer, then prefill_32k and train_4k, each ``moe_ffn_ep`` call
+    counted.  Launch counts zeroed at the start and read at the end: the
+    path launches none of the six kernels."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import one_rank_mesh
+    from repro_torch.models import transformer as lm
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    spec = get_arch("olmoe-1b-7b")
+    cfg = spec.config
+    calls = [0]
+    real = lm.moe_ffn_ep
+
+    def counted(*args):
+        calls[0] += 1
+        return real(*args)
+
+    metrics = {}
+    lm.moe_ffn_ep = counted
+    try:
+        with one_rank_mesh() as mesh:
+            ax = shd.mesh_axes(mesh)
+            infos = {kind: shd.lm_shardings(cfg, ax, kind, 1, 4096)[
+                "hooks"].moe_ep for kind in ("train", "prefill", "decode")}
+            check(infos["train"] is not None and infos["prefill"] is not None
+                  and infos["decode"] is None,
+                  f"OLMoE on the (1, 1) mesh: hooks.moe_ep set for train "
+                  f"and prefill ({infos['train']}), not for decode")
+            info = infos["train"]._replace(mesh=mesh)
+            metrics["moe_ep_vs_moe_ffn"] = moe_ep_vs_plain(torch, dev, cfg,
+                                                          info)
+            metrics["prefill_32k"] = moe_ep_prefill(torch, dev, spec, mesh,
+                                                    calls)
+            metrics["train_4k"] = moe_ep_train(torch, dev, spec, mesh, calls)
+    finally:
+        lm.moe_ffn_ep = real
+    counts = launch_counts()
+    check(not any(counts.values()),
+          f"the MoE-EP path launched none of the six kernels ({counts}); "
+          "the kernels line does not count this phase")
+    metrics["kernel_launches"] = counts
+    metrics["cuts"] = {
+        "prefill_32k": f"batch {MOE_EP_PREFILL_BATCH} of 32",
+        "train_4k": f"{MOE_EP_TRAIN_LAYERS} of 16 layers, batch "
+                    f"{MOE_EP_TRAIN_BATCH} of 256"}
     metrics["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase {metrics['phase_s']:.1f} s")
     return metrics
@@ -3297,7 +3597,7 @@ def gnn_ogb_check(torch, dev, cfg, params, batch, host, n: int) -> dict:
     return out
 
 
-def gnn_cell(torch, dev, spec, shape) -> dict:
+def gnn_cell(torch, dev, spec, shape, mesh) -> dict:
     """One cell through ``steps.build_cell``: its host data, the warm-up
     and timed steps, the card against the host (or, for ogb_products, the
     chunked against the plain loss on the card), and one step under the
@@ -3308,7 +3608,7 @@ def gnn_cell(torch, dev, spec, shape) -> dict:
     from repro_torch.models.gnn_ep import edge_chunk
     from repro_torch.training.optimizer import AdamW
     cfg = spec.config
-    cell = build_cell(spec, shape)
+    cell = build_cell(spec, shape, mesh)
     pstructs, _, structs = cell.args
     d, n_out = pstructs["l1"]["W"].shape[0], pstructs["l2"]["a_src"].shape[1]
     t0 = time.perf_counter()
@@ -3391,26 +3691,22 @@ def gnn_cell(torch, dev, spec, shape) -> dict:
 
 def run_gnn(torch, dev) -> dict:
     """The four ``gat-cora`` cells at their registered sizes through
-    ``steps.build_cell``, the ``train_full`` ones on a one-rank NCCL
-    process group.  Launch counts zeroed at the start and read at the end:
-    the GNN path launches none of the six kernels."""
-    import torch.distributed as dist
+    ``steps.build_cell`` on a (1, 1) mesh over a one-rank NCCL process
+    group (the ``train_full`` ones run its collectives).  Launch counts
+    zeroed at the start and read at the end: the GNN path launches none
+    of the six kernels."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import one_rank_mesh
     t_phase = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     reset_launch_counts()
     spec = get_arch("gat-cora")
     metrics = {}
-    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
-                            world_size=1, device_id=torch.device(
-                                "cuda", torch.cuda.current_device()))
-    try:
+    with one_rank_mesh() as mesh:
         for shape in spec.shapes:
-            metrics[shape.name] = gnn_cell(torch, dev, spec, shape)
-    finally:
-        dist.destroy_process_group()
+            metrics[shape.name] = gnn_cell(torch, dev, spec, shape, mesh)
     counts = launch_counts()
     check(not any(counts.values()),
           f"the GNN path launched none of the six kernels ({counts}); the "
@@ -3589,6 +3885,10 @@ def main() -> int:
         lm = run_lm(torch, dev)
         torch.cuda.empty_cache()
 
+        log("== 11b. OLMoE through expert parallelism (moe_ep)")
+        moe_ep = run_moe_ep(torch, dev)
+        torch.cuda.empty_cache()
+
         log("== 12. GNN family at full width")
         gnn = run_gnn(torch, dev)
         torch.cuda.empty_cache()
@@ -3620,6 +3920,7 @@ def main() -> int:
         print(json.dumps({"cf_family": cf_family}))
         print(json.dumps({"recsys": recsys}))
         print(json.dumps({"lm": lm}))
+        print(json.dumps({"moe_ep": moe_ep}))
         print(json.dumps({"gnn": gnn}))
         print(json.dumps({"kernels": kernels}))
         print(nvidia_smi_line())

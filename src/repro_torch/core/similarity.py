@@ -31,11 +31,19 @@ def _safe(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, EPS)
 
 
-def cosine_matrix(R: torch.Tensor) -> torch.Tensor:
-    """(n, n) cosine similarity; fp32 accumulation."""
+def cosine_matrix(R: torch.Tensor, *,
+                  compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(n, n) cosine similarity; fp32 accumulation.  The rows and their
+    norms are rounded to ``compute_dtype`` and divided there, as in the
+    reference; a bf16 product is a float32 sum of exact bf16 products
+    (``layers.matmul_f32``)."""
     _fp32_exact(R)
-    Rn = R.float() / _safe(row_norms(R))[:, None]
-    return Rn @ Rn.T
+    Rn = R.to(compute_dtype) / _safe(row_norms(R))[:, None].to(compute_dtype)
+    if compute_dtype == torch.float32:
+        return Rn @ Rn.T
+    # Imported here: ``repro_torch.models`` imports this package.
+    from repro_torch.models.layers import matmul_f32
+    return matmul_f32(Rn, Rn.T)
 
 
 def cosine_vs_all(R: torch.Tensor, norms: torch.Tensor,

@@ -36,9 +36,10 @@ c = 8 and N = 32,768, 2.36 MB.  The reference's docstring claims about
 
 Without an initialised process group every entry point raises: nothing
 here falls back to the unsharded burst (``twinsearch.onboard_batch_
-buffered``).  The reference's ``axes``, ``mesh`` and ``unroll`` are
-dropped: the group (``None``, the default group) names the shards, and
-the shard id is the rank in it.
+buffered``).  The shards are the reference's ``axes`` of a ``DeviceMesh``
+``mesh`` (every axis when ``axes`` is None); without a mesh, the ranks of
+the default process group.  The shard id is the rank in that group.  The
+reference's ``unroll`` is dropped.
 """
 from __future__ import annotations
 
@@ -51,6 +52,7 @@ from repro_torch.core.twinsearch import mask_from_probe_rows
 from repro_torch.core.types import (CFState, OnboardStats, SENTINEL,
                                     as_index)
 from repro_torch.distributed.sharding import local_state
+from repro_torch.launch.mesh import axis_group
 from repro_torch.serving import guard
 from repro_torch.sorting import argsort_rows, top_k
 
@@ -65,18 +67,21 @@ def payload_bytes(n_base: int, c: int, branch: str) -> int:
                      "fallback": 4 * n_base}[branch]
 
 
-def _group_shape(group) -> tuple[int, int]:
+def _group_shape(axes, mesh) -> tuple[object, int, int]:
+    """(group, rank, world) of the shards: the group ``axes`` of ``mesh``
+    name, or the default group (None) without a mesh."""
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError(
             "the sharded TwinSearch burst needs an initialised "
             "torch.distributed process group (init_process_group); it does "
             "not fall back to the unsharded burst")
-    return dist.get_rank(group), dist.get_world_size(group)
+    group = None if mesh is None else axis_group(mesh, axes)
+    return group, dist.get_rank(group), dist.get_world_size(group)
 
 
 def onboard_batch_sharded(state: CFState, R_new: torch.Tensor, probe_idx,
-                          *, s_max: int, tol: float = 1e-6,
-                          maintain: bool = False, group=None):
+                          *, s_max: int, axes=None, mesh=None,
+                          tol: float = 1e-6, maintain: bool = False):
     """The burst of k new users over this rank's rows of an immutable base
     arena.
 
@@ -89,7 +94,7 @@ def onboard_batch_sharded(state: CFState, R_new: torch.Tensor, probe_idx,
     stats), the same on every rank; with ``maintain=True`` a fourth element
     (base_vals, base_idx): this rank's (rows, N_base + k) base lists with
     the whole burst merged in."""
-    rank, world = _group_shape(group)
+    group, rank, world = _group_shape(axes, mesh)
     rows_loc = state.capacity
     N_base = state.sim_vals.shape[1]
     if rows_loc * world != N_base:
@@ -195,9 +200,9 @@ def onboard_batch_sharded(state: CFState, R_new: torch.Tensor, probe_idx,
 
 
 def onboard_batch_resilient(state: CFState, R_new: torch.Tensor, probe_idx,
-                            *, s_max: int, replicas=None, retry=None,
-                            tol: float = 1e-6, maintain: bool = False,
-                            group=None):
+                            *, s_max: int, axes=None, mesh=None,
+                            replicas=None, retry=None, tol: float = 1e-6,
+                            maintain: bool = False):
     """``onboard_batch_sharded`` behind the serving resilience layer.
 
     ``state`` is the whole arena, as in the reference.  Before the burst,
@@ -212,7 +217,7 @@ def onboard_batch_resilient(state: CFState, R_new: torch.Tensor, probe_idx,
     Raises ``RuntimeError`` if a poisoned row has no surviving replica —
     only a snapshot rollback (the serving layer's job) can help then — or
     if no process group is initialised."""
-    rank, world = _group_shape(group)
+    _, rank, world = _group_shape(axes, mesh)
     if replicas is not None:
         replicas.sweep()
         fixed, rows = replicas.repair(state)
@@ -225,7 +230,8 @@ def onboard_batch_resilient(state: CFState, R_new: torch.Tensor, probe_idx,
 
     def run():
         out = onboard_batch_sharded(local, R_new, probe_idx, s_max=s_max,
-                                    tol=tol, maintain=maintain, group=group)
+                                    axes=axes, mesh=mesh, tol=tol,
+                                    maintain=maintain)
         if local.ratings.is_cuda:
             torch.cuda.synchronize(local.device)
         return out

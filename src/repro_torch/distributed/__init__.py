@@ -1,13 +1,14 @@
-"""Replication over the row-sharded arena, and the row split it keys on.
-``__all__`` is the reference's, less the mesh-only names."""
+"""Sharding rules, replication over the row-sharded arena, and the row
+split it keys on.  ``__all__`` is the reference's."""
 from repro_torch.distributed.replication import (ReplicaState,
                                                  ReplicatedArena,
                                                  ReplicationConfig)
-from repro_torch.distributed.sharding import (cf_shardings, gnn_shardings,
-                                              lm_shardings, local_state,
+from repro_torch.distributed.sharding import (MeshAxes, cf_shardings,
+                                              gnn_shardings, lm_shardings,
+                                              local_state, mesh_axes, named,
                                               recsys_shardings,
-                                              shard_row_slice)
+                                              shard_row_slice, zero_extend)
 
-__all__ = ["cf_shardings", "gnn_shardings", "lm_shardings",
-           "recsys_shardings",
+__all__ = ["MeshAxes", "cf_shardings", "gnn_shardings", "lm_shardings",
+           "mesh_axes", "named", "recsys_shardings", "zero_extend",
            "ReplicaState", "ReplicatedArena", "ReplicationConfig"]

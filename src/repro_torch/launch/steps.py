@@ -1,14 +1,19 @@
 """Cell builder (PyTorch port of ``repro.launch.steps``): (arch spec,
-shape, world size) -> step function with its arguments as ``meta``
-tensors, each leaf's row split over the ranks, and the analytic useful
-FLOPs.  The single dispatch point the trainer shares with the tests.
+shape, mesh) -> step function with its arguments as ``meta`` tensors, the
+reference's partition specs for them (``distributed.sharding``; bind them
+to the mesh with ``named``), and the analytic useful FLOPs.  The single
+dispatch point the trainer shares with the tests.
 
-Train cells run the full train step: loss -> backward -> AdamW update.
-The port builds cells for all four families (``lm``, ``gnn``, ``recsys``,
-``cf``).
-``jit_cell`` and ``launch/mesh.py`` bind a cell to a TPU mesh; they wait
-with the dry-run group (``dryrun``, ``roofline``) that ports them as
-shape and memory checks on the ``meta`` device.
+Train cells run the full train step: loss -> backward -> AdamW update, the
+optimizer state's specs ZeRO-extended over the data axes as in the
+reference.  The port builds cells for all four families (``lm``, ``gnn``,
+``recsys``, ``cf``).  A cell's function runs on this rank's tensors: the
+LM train and prefill cells of an MoE whose experts divide the model axis
+route through ``models.moe_ep`` on the mesh's process groups, the GNN
+``train_full`` cell through ``models.gnn_ep`` and the CF onboard cell
+through the sharded burst, each over the mesh's ranks.  (``jit_cell``, the
+reference's binding of a cell to a compiled program, waits with the dry
+run.)
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from typing import Any, Callable
 from repro_torch.configs.base import ArchSpec, ShapeSpec
 from repro_torch.core.types import CFState
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import P
 from repro_torch.models import cf as cf_mod
 from repro_torch.models import gnn as gnn_mod
 from repro_torch.models.gnn_ep import GNNEPInfo, loss_full_ep
@@ -32,15 +38,22 @@ class Cell:
     name: str
     fn: Callable
     args: tuple                      # trees of ``meta`` tensors
-    shardings: Any                   # Rows/Replicated trees matching args
+    in_specs: Any                    # P trees (tuple matching args)
+    out_specs: Any                   # or None for auto
+    donate: tuple[int, ...]          # args the step may overwrite
     model_flops: float               # analytic useful FLOPs, whole step
 
 
-def _opt_structs_and_specs(param_structs, param_specs):
+def _opt_structs_and_specs(param_structs, param_specs, ax):
     opt = AdamW(lr=3e-4, weight_decay=0.01)
     opt_structs = opt.init(param_structs)
-    opt_specs = AdamWState(step=shd.Replicated(), mu=param_specs,
-                           nu=param_specs, master=param_specs)
+
+    def ext(spec, struct):
+        return shd.zero_extend(spec, tuple(struct.shape), ax)
+
+    ext_specs = shd.map_specs(ext, param_specs, param_structs)
+    opt_specs = AdamWState(step=P(), mu=ext_specs, nu=ext_specs,
+                           master=ext_specs)
     return opt, opt_structs, opt_specs
 
 
@@ -148,13 +161,17 @@ def cf_model_flops(cfg, shape: ShapeSpec) -> float:
 # Family cell builders
 # ---------------------------------------------------------------------------
 
-def _lm_cell(spec: ArchSpec, shape: ShapeSpec, world_size: int) -> Cell:
+def _lm_cell(spec: ArchSpec, shape: ShapeSpec, ax: shd.MeshAxes,
+             mesh=None) -> Cell:
     """``train``: ``lm_loss`` -> gradients -> AdamW.  ``prefill``: the
     last-position logits and the decode cache.  ``decode``: one token per
     sequence against the cache, which it updates in place."""
     cfg = spec.config
-    sh = shd.lm_shardings(cfg, world_size, shape.kind,
-                          shape.dim("global_batch"), shape.dim("seq_len"))
+    sh = shd.lm_shardings(cfg, ax, shape.kind, shape.dim("global_batch"),
+                          shape.dim("seq_len"))
+    if sh["hooks"].moe_ep is not None:
+        sh["hooks"] = sh["hooks"]._replace(
+            moe_ep=sh["hooks"].moe_ep._replace(mesh=mesh))
     pstructs = lm_mod.param_structs(cfg)
     pspecs, hooks = sh["params"], sh["hooks"]
     inputs = lm_mod.input_structs(cfg, shape)
@@ -162,17 +179,20 @@ def _lm_cell(spec: ArchSpec, shape: ShapeSpec, world_size: int) -> Cell:
     name = f"{spec.arch_id}/{shape.name}"
 
     if shape.kind == "train":
-        opt, ostructs, ospecs = _opt_structs_and_specs(pstructs, pspecs)
+        opt, ostructs, ospecs = _opt_structs_and_specs(pstructs, pspecs, ax)
         step = _train_step(
             lambda p, b: lm_mod.lm_loss(p, b["tokens"], cfg, hooks), opt)
         return Cell(name=name, fn=step, args=(pstructs, ostructs, inputs),
-                    shardings=(pspecs, ospecs, sh["inputs"]),
+                    in_specs=(pspecs, ospecs, sh["inputs"]),
+                    out_specs=(pspecs, ospecs, P()), donate=(0, 1),
                     model_flops=flops)
     if shape.kind == "prefill":
         def step(params, batch):
             return lm_mod.prefill(params, batch["tokens"], cfg, hooks)
         return Cell(name=name, fn=step, args=(pstructs, inputs),
-                    shardings=(pspecs, sh["inputs"]), model_flops=flops)
+                    in_specs=(pspecs, sh["inputs"]),
+                    out_specs=(P(ax.dp, ax.mp), sh["cache"]), donate=(),
+                    model_flops=flops)
 
     def step(params, cache, tokens, pos):
         return lm_mod.decode_step(params, cache, tokens, pos, cfg, hooks)
@@ -180,20 +200,22 @@ def _lm_cell(spec: ArchSpec, shape: ShapeSpec, world_size: int) -> Cell:
     return Cell(name=name, fn=step,
                 args=(pstructs, inputs["cache"], inputs["tokens"],
                       inputs["pos"]),
-                shardings=(pspecs, ins["cache"], ins["tokens"], ins["pos"]),
+                in_specs=(pspecs, ins["cache"], ins["tokens"], ins["pos"]),
+                out_specs=(sh["logits"], ins["cache"]), donate=(1,),
                 model_flops=flops)
 
 
-def _gnn_cell(spec: ArchSpec, shape: ShapeSpec, world_size: int) -> Cell:
+def _gnn_cell(spec: ArchSpec, shape: ShapeSpec, ax: shd.MeshAxes,
+              mesh=None) -> Cell:
     """An AdamW train step of the shape's loss.  ``train_full`` runs the
-    edge-parallel GAT (``models.gnn_ep``) on the current process group:
-    each rank passes its rows of the edge lists and the node tensors whole
-    (every rank computes the loss from the replicated logits, so labels
-    and mask are replicated too, where the reference's data axes split the
-    loss).  The other kinds run whole on one rank; their shardings say
-    which rows a rank would hold."""
+    edge-parallel GAT (``models.gnn_ep``) over the mesh's ranks: each rank
+    passes its rows of the edge lists and the node tensors whole (every
+    rank computes the loss from the replicated logits, so labels and mask
+    are replicated too, where the reference's data axes split the loss).
+    The other kinds run whole on one rank; their specs say which rows a
+    rank would hold."""
     cfg = spec.config
-    sh = shd.gnn_shardings(cfg, world_size, shape.kind)
+    sh = shd.gnn_shardings(cfg, ax, shape.kind)
     d = shape.dim("d_feat")
     n_out = {"full_graph_sm": 7, "minibatch_lg": 41, "ogb_products": 47,
              "molecule": 2}.get(shape.name, cfg.n_classes)
@@ -201,24 +223,26 @@ def _gnn_cell(spec: ArchSpec, shape: ShapeSpec, world_size: int) -> Cell:
     pspecs = sh["params"]
     inputs = gnn_mod.input_structs(cfg, shape)
     if shape.kind == "train_full":
-        for k in ("feats", "labels", "mask"):
-            sh["inputs"][k] = shd.Replicated()
-        info = GNNEPInfo()
+        sh["inputs"].update(feats=P(None, None), labels=P(None),
+                            mask=P(None))
+        info = GNNEPInfo(axes=ax.all, mesh=mesh)
         loss = lambda p, b: loss_full_ep(p, b, cfg, info)   # noqa: E731
     else:
         kind_loss = gnn_mod.LOSS_BY_KIND[shape.kind]
         loss = lambda p, b: kind_loss(p, b, cfg)            # noqa: E731
-    opt, ostructs, ospecs = _opt_structs_and_specs(pstructs, pspecs)
+    opt, ostructs, ospecs = _opt_structs_and_specs(pstructs, pspecs, ax)
     return Cell(name=f"{spec.arch_id}/{shape.name}",
                 fn=_train_step(loss, opt), args=(pstructs, ostructs, inputs),
-                shardings=(pspecs, ospecs, sh["inputs"]),
+                in_specs=(pspecs, ospecs, sh["inputs"]),
+                out_specs=(pspecs, ospecs, P()), donate=(0, 1),
                 model_flops=gnn_model_flops(cfg, shape))
 
 
-def _recsys_cell(spec: ArchSpec, shape: ShapeSpec, world_size: int) -> Cell:
+def _recsys_cell(spec: ArchSpec, shape: ShapeSpec, ax: shd.MeshAxes,
+                 mesh=None) -> Cell:
     cfg = spec.config
     pstructs = rec_mod.init_params(None, cfg, device="meta")
-    sh = shd.recsys_shardings(cfg, world_size, shape.kind, pstructs)
+    sh = shd.recsys_shardings(cfg, ax, shape.kind, pstructs)
     pspecs = sh["params"]
     inputs = rec_mod.input_structs(cfg, shape)
     in_specs = {k: sh["inputs"][k] for k in inputs}
@@ -226,53 +250,57 @@ def _recsys_cell(spec: ArchSpec, shape: ShapeSpec, world_size: int) -> Cell:
     name = f"{spec.arch_id}/{shape.name}"
 
     if shape.kind == "train":
-        opt, ostructs, ospecs = _opt_structs_and_specs(pstructs, pspecs)
+        opt, ostructs, ospecs = _opt_structs_and_specs(pstructs, pspecs, ax)
         step = _train_step(lambda p, b: rec_mod.loss(p, b, cfg), opt)
         return Cell(name=name, fn=step, args=(pstructs, ostructs, inputs),
-                    shardings=(pspecs, ospecs, in_specs), model_flops=flops)
+                    in_specs=(pspecs, ospecs, in_specs),
+                    out_specs=(pspecs, ospecs, P()), donate=(0, 1),
+                    model_flops=flops)
     if shape.kind == "retrieval" and cfg.variant == "two_tower":
         def step(params, batch):
             return rec_mod.retrieve(params, batch, cfg)
         return Cell(name=name, fn=step, args=(pstructs, inputs),
-                    shardings=(pspecs, in_specs), model_flops=flops)
+                    in_specs=(pspecs, in_specs), out_specs=None, donate=(),
+                    model_flops=flops)
 
     def step(params, batch):
         return rec_mod.forward(params, batch, cfg)
     return Cell(name=name, fn=step, args=(pstructs, inputs),
-                shardings=(pspecs, in_specs), model_flops=flops)
+                in_specs=(pspecs, in_specs), out_specs=None, donate=(),
+                model_flops=flops)
 
 
-def _cf_cell(spec: ArchSpec, shape: ShapeSpec, world_size: int) -> Cell:
+def _cf_cell(spec: ArchSpec, shape: ShapeSpec, ax: shd.MeshAxes,
+             mesh=None) -> Cell:
     """``build``: ``models.cf.build_step``.  ``onboard``: the sharded burst
-    (``onboard_step(distributed=True)``, as the reference's cell always
-    takes the mesh path): it runs inside a ``torch.distributed`` process
-    group of ``world_size`` ranks, each passing its rows of the arena
-    (``distributed.sharding.local_state``)."""
+    over every axis of the mesh (``onboard_step(mesh_info=...)``, as the
+    reference's cell always takes the mesh path): each rank passes its rows
+    of the arena (``distributed.sharding.local_state``)."""
     cfg = spec.config
-    sh = shd.cf_shardings(cfg, world_size, shape.kind)
+    sh = shd.cf_shardings(cfg, ax, shape.kind)
     inputs = cf_mod.input_structs(cfg, shape)
     flops = cf_model_flops(cfg, shape)
     name = f"{spec.arch_id}/{shape.name}"
     if shape.kind == "build":
         return Cell(name=name, fn=cf_mod.build_step, args=(inputs["R"],),
-                    shardings=(sh["inputs"]["R"],), model_flops=flops)
+                    in_specs=(sh["inputs"]["R"],), out_specs=sh["out"],
+                    donate=(), model_flops=flops)
 
     def step(state: CFState, R_new, probes):
         return cf_mod.onboard_step(state, R_new, probes, cfg,
-                                   distributed=True)
+                                   mesh_info=(ax.all, mesh))
     return Cell(name=name, fn=step,
                 args=(inputs["state"], inputs["R_new"], inputs["probes"]),
-                shardings=(sh["inputs"]["state"], sh["inputs"]["R_new"],
-                           sh["inputs"]["probes"]),
-                model_flops=flops)
+                in_specs=(sh["inputs"]["state"], sh["inputs"]["R_new"],
+                          sh["inputs"]["probes"]),
+                out_specs=None, donate=(), model_flops=flops)
 
 
 _BUILDERS = {"lm": _lm_cell, "gnn": _gnn_cell, "recsys": _recsys_cell,
              "cf": _cf_cell}
 
 
-def build_cell(spec: ArchSpec, shape: ShapeSpec, world_size: int = 1
-               ) -> Cell:
-    """The cell of ``spec`` at ``shape`` over ``world_size`` ranks."""
-    return _BUILDERS[spec.family](spec, shape, world_size)
-
+def build_cell(spec: ArchSpec, shape: ShapeSpec, mesh) -> Cell:
+    """The cell of ``spec`` at ``shape`` on ``mesh`` (a ``DeviceMesh``,
+    ``launch.mesh``)."""
+    return _BUILDERS[spec.family](spec, shape, shd.mesh_axes(mesh), mesh)

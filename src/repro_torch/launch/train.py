@@ -1,10 +1,12 @@
 """Training launcher of the port (``repro.launch.train`` on PyTorch).
 
 Selects an architecture config, builds its train cell
-(``launch.steps.build_cell``), materialises params and optimizer state as
-zeros on the device, as the reference launcher does, and runs the
-restartable loop with checkpointing and straggler monitoring.  On the card
-by default; the tests pass ``--device cpu``.
+(``launch.steps.build_cell``) on a (1, 1) mesh (``launch.mesh.
+one_rank_mesh``: a one-rank process group it opens unless one is open),
+materialises params and optimizer state as zeros on the device, as the
+reference launcher does, and runs the restartable loop with checkpointing
+and straggler monitoring.  On the card by default; the tests pass
+``--device cpu``.
 
   python -m repro_torch.launch.train --arch xdeepfm --shape train_batch \\
       --steps 100 --ckpt /ckpt/run1 [--resume] [--device cuda]
@@ -12,9 +14,9 @@ by default; the tests pass ``--device cpu``.
 
 From zeros only the recsys models' wide branch and last biases receive
 gradient, and an LM's gradients are all zero (the reference's start, kept:
-ROADMAP, reference quirks).  ``--multi-pod`` and ``--debug-mesh`` name JAX
-meshes, which the port does not have, and exit with a message; so does a
-shape that is not a training shape.
+ROADMAP, reference quirks).  ``--multi-pod`` and ``--debug-mesh`` name the
+reference's multi-rank meshes; the port's launcher trains on one rank and
+exits with a message, as it does for a shape that is not a training shape.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.core.types import require_device
+from repro_torch.launch.mesh import one_rank_mesh
 from repro_torch.launch.steps import build_cell
 from repro_torch.training import (StragglerMonitor, TrainLoopConfig,
                                   run_loop)
@@ -67,9 +70,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--multi-pod", action="store_true",
-                    help="a JAX mesh option; the port refuses it")
+                    help="a multi-rank mesh; the port's launcher refuses it")
     ap.add_argument("--debug-mesh", action="store_true",
-                    help="a JAX mesh option; the port refuses it")
+                    help="a multi-rank mesh; the port's launcher refuses it")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu (the plain versions)")
@@ -83,29 +86,31 @@ def main(argv: list[str] | None = None):
     for flag in ("multi_pod", "debug_mesh"):
         if getattr(args, flag):
             sys.exit(f"repro_torch.launch.train: --{flag.replace('_', '-')} "
-                     "names a JAX mesh; the port runs on one card (or the "
-                     "CPU) and has no meshes")
+                     "names a multi-rank mesh; the port's launcher trains "
+                     "on one card (or the CPU), a (1, 1) mesh")
     spec = get_arch(args.arch)
     device = require_device(args.device, "repro_torch.launch.train")
     shape = spec.shape(args.shape)
     if not shape.kind.startswith("train"):
         sys.exit(f"repro_torch.launch.train: {args.arch}/{args.shape} is a "
                  f"{shape.kind} shape, not a train shape")
-    cell = build_cell(spec, shape)
-    pstructs, ostructs, _ = cell.args
-    params, opt_state = _zeros(pstructs, device), _zeros(ostructs, device)
+    with one_rank_mesh(device.type) as mesh:
+        cell = build_cell(spec, shape, mesh)
+        pstructs, ostructs, _ = cell.args
+        params = _zeros(pstructs, device)
+        opt_state = _zeros(ostructs, device)
 
-    batches = make_batches(spec, shape, device)
-    monitor = StragglerMonitor()
+        batches = make_batches(spec, shape, device)
+        monitor = StragglerMonitor()
 
-    def wrapped(params, opt_state, ef, batch):
-        params, opt_state, loss = cell.fn(params, opt_state, batch)
-        return params, opt_state, ef, {"loss": loss}
+        def wrapped(params, opt_state, ef, batch):
+            params, opt_state, loss = cell.fn(params, opt_state, batch)
+            return params, opt_state, ef, {"loss": loss}
 
-    loop_cfg = TrainLoopConfig(n_steps=args.steps, ckpt_dir=args.ckpt,
-                               resume=args.resume)
-    out = run_loop(wrapped, params, opt_state, batches, loop_cfg,
-                   monitor=monitor)
+        loop_cfg = TrainLoopConfig(n_steps=args.steps, ckpt_dir=args.ckpt,
+                                   resume=args.resume)
+        out = run_loop(wrapped, params, opt_state, batches, loop_cfg,
+                       monitor=monitor)
     log.info("done; straggler stats: %s", monitor.stats())
     return out
 

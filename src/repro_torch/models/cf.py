@@ -10,7 +10,7 @@ Two step kinds (see ``repro_torch/configs/twinsearch_cf.py``):
   * ``onboard`` — the TwinSearch burst: k new users scanned through
     probe -> equal-range search -> mask intersect -> bounded verify -> copy,
     with the traditional mat-vec + sort as the per-user fallback; over a
-    row-sharded arena on ``torch.distributed`` when ``distributed=True``
+    row-sharded arena on ``torch.distributed`` when given ``mesh_info``
     (``core.twinsearch_sharded``).
 
 ``state_structs`` and ``input_structs`` describe a step's inputs as
@@ -55,24 +55,25 @@ def build_step(R: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def onboard_step(state: CFState, R_new: torch.Tensor, probes,
-                 cfg: CFConfig, group=None, distributed: bool = False):
+                 cfg: CFConfig, mesh_info=None):
     """The TwinSearch burst over an immutable base arena, with the static
     candidate bound ``set0_cap(N_base, cfg.set0_divisor, cfg.set0_slack)``
     and ``tol = cfg.sim_tol``.
 
-    ``distributed=False``: ``state`` is the whole arena and the buffered
-    burst runs (``twinsearch.onboard_batch_buffered``).
-    ``distributed=True``: ``state`` is this rank's rows
+    Without ``mesh_info``: ``state`` is the whole arena and the buffered
+    burst runs (``twinsearch.onboard_batch_buffered``).  With
+    ``mesh_info=(axes, mesh)``: ``state`` is this rank's rows
     (``distributed.sharding.local_state``) of an arena row-sharded over
-    ``group`` (``None``: the default process group), and the sharded burst
-    runs (``twinsearch_sharded.onboard_batch_sharded``); N_base is the
-    width of the lists."""
+    those axes of the ``DeviceMesh``, and the sharded burst runs
+    (``twinsearch_sharded.onboard_batch_sharded``); N_base is the width of
+    the lists."""
     n_base = state.sim_vals.shape[1]
     s_max = set0_cap(n_base, cfg.set0_divisor, cfg.set0_slack)
-    if distributed:
+    if mesh_info is not None:
         from repro_torch.core.twinsearch_sharded import onboard_batch_sharded
+        axes, mesh = mesh_info
         return onboard_batch_sharded(state, R_new, probes, s_max=s_max,
-                                     tol=cfg.sim_tol, group=group)
+                                     axes=axes, mesh=mesh, tol=cfg.sim_tol)
     return ts.onboard_batch_buffered(state, R_new, probes, s_max=s_max,
                                      tol=cfg.sim_tol)
 

@@ -2,9 +2,8 @@
 ``repro.models.gnn_ep``).
 
 Each rank of a process group holds the node features, labels and mask
-whole (replicated) and its rows of the edge list (``distributed.sharding.
-Rows``).  Messages stay local to their edge rows and node aggregates are
-combined with collectives:
+whole (replicated) and its rows of the edge list.  Messages stay local
+to their edge rows and node aggregates are combined with collectives:
 
   per rank:  e_loc = LeakyReLU(a_src·Wh[src_loc] + a_dst·Wh[dst_loc])
              m     = all_reduce MAX(segment_max(e_loc))          (N, H)
@@ -36,8 +35,9 @@ granularity.  The (E, H) score tensors (2.06 GB each there) are whole.
 Chunking changes only the order of float sums.
 
 Without an initialised process group the entry points raise; nothing
-falls back to ``gnn.loss_full``.  ``GNNEPInfo`` names the process group
-(``None``: the default group) where the reference names mesh axes.
+falls back to ``gnn.loss_full``.  ``GNNEPInfo`` names the edges' ranks as
+the reference does, by mesh axes of a ``DeviceMesh`` (every axis when
+``axes`` is None); without a mesh, the default process group.
 """
 from __future__ import annotations
 
@@ -48,6 +48,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import GNNConfig
+from repro_torch.launch.mesh import axis_group
 from repro_torch.models.gnn import (node_scores, node_xent, segment_max,
                                     segment_sum)
 from repro_torch.models.layers import leaky_relu
@@ -56,7 +57,13 @@ MSG_CHUNK_BYTES = 2 << 30
 
 
 class GNNEPInfo(NamedTuple):
-    group: object = None         # the process group the edges split over
+    axes: tuple[str, ...] | None = None   # mesh axes the edges split over
+    mesh: object = None                   # their DeviceMesh
+
+    def process_group(self):
+        """The group the edges split over (None: the default group)."""
+        return None if self.mesh is None else axis_group(self.mesh,
+                                                          self.axes)
 
 
 def edge_chunk(n_heads: int, f_out: int, dtype: torch.dtype) -> int:
@@ -173,11 +180,12 @@ def forward_segment_ep(params: dict, feats: torch.Tensor,
     """(N, d) replicated feats + this rank's rows of the edge lists ->
     (N, n_classes) replicated logits."""
     _require_group()
+    group = info.process_group()
     src, dst = edge_src.long(), edge_dst.long()
     h = F.elu(_gat_layer_local(feats, src, dst, params["l1"], cfg.n_heads,
-                               cfg.negative_slope, True, info.group))
+                               cfg.negative_slope, True, group))
     return _gat_layer_local(h, src, dst, params["l2"], cfg.n_heads,
-                            cfg.negative_slope, False, info.group)
+                            cfg.negative_slope, False, group)
 
 
 def loss_full_ep(params, batch, cfg: GNNConfig, info: GNNEPInfo):

@@ -18,8 +18,10 @@ Design points:
     decode cell donates the cache to the step);
   * ``LMShardingHooks`` are the reference's sharding constraints.  In one
     process ``acts``, ``logits``, ``moe_tokens`` and ``moe_experts`` have
-    no effect; ``moe_ep`` (expert parallelism, ``models/moe_ep.py``) is not
-    ported and raises (ROADMAP Queue 1, item 4.3).
+    no effect; ``moe_ep`` (a ``models.moe_ep.MoEEPInfo``) routes the MoE
+    layers through the expert-parallel ``moe_ffn_ep`` on its mesh's
+    process groups, each rank passing its blocks of the activations and
+    expert weights.
 
 The embedding scale is rounded to the param dtype before it multiplies
 (√1152 is 34.0 in bf16), and the unembedding is a float32 sum of exact
@@ -41,19 +43,20 @@ from repro_torch.models.attention import gqa_attention
 from repro_torch.models.layers import (apply_rope, fan_in_init, ffn,
                                        matmul_f32, normal_init, rms_norm)
 from repro_torch.models.moe import moe_ffn
+from repro_torch.models.moe_ep import moe_ffn_ep
 
 GLOBAL_WINDOW = 1 << 30
 
 
 class LMShardingHooks(NamedTuple):
     """The reference's sharding constraints.  Without a mesh they have no
-    effect, except ``moe_ep``, which is not ported and raises."""
+    effect, except ``moe_ep``, which selects ``moe_ffn_ep``."""
 
     acts: Any = None        # (B, S, d) between blocks
     logits: Any = None      # (B, chunk, V) inside the loss
     moe_tokens: Any = None  # (G, gs, d) token groups + dispatch buffer
     moe_experts: Any = None  # (G, E, C, f) expert-sharded buffers
-    moe_ep: Any = None      # expert parallelism: not ported
+    moe_ep: Any = None      # MoEEPInfo: expert parallelism (moe_ffn_ep)
 
 
 def is_global_layer(cfg: LMConfig, layer: int) -> bool:
@@ -187,12 +190,15 @@ def _ffn_sublayer(x: torch.Tensor, lp: dict, cfg: LMConfig,
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     if cfg.moe is not None:
-        if hooks.moe_ep is not None:
-            raise NotImplementedError(
-                "expert parallelism (hooks.moe_ep, models/moe_ep.py) is not "
-                "ported yet: ROADMAP Queue 1, item 4.3")
         shared = ((lp["w_in_sh"], lp["w_out_sh"])
                   if cfg.moe.n_shared else None)
+        if hooks.moe_ep is not None:
+            y, aux = moe_ffn_ep(h, lp["router"], lp["w_in_e"],
+                                lp["w_out_e"], cfg.moe, cfg.act,
+                                hooks.moe_ep)
+            if shared is not None:
+                y = y + ffn(h, shared[0], shared[1], cfg.act)
+            return y, aux
         return moe_ffn(h, lp["router"], lp["w_in_e"], lp["w_out_e"], shared,
                        cfg.moe, cfg.act, tokens_spec=hooks.moe_tokens,
                        experts_spec=hooks.moe_experts)

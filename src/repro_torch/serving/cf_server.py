@@ -106,6 +106,7 @@ import dataclasses
 import logging
 import math
 import time
+import warnings
 from collections import deque
 from dataclasses import dataclass, field
 
@@ -325,12 +326,28 @@ class OnboardResult:
 class CFServer:
     def __init__(self, ratings, config: ServerConfig | None = None, *,
                  device: str | torch.device = "cuda",
-                 recover: bool = False):
+                 recover: bool = False, **legacy):
         """Build the arena from ``ratings`` ((n, m), numpy or tensor, 0 =
         unrated) on ``device``.  Raises if ``device`` is CUDA and no card
         is present: the server never slides onto the CPU by itself.
-        ``recover=True`` is ``CFServer.recover``."""
-        config = config if config is not None else ServerConfig()
+        ``recover=True`` is ``CFServer.recover``.
+
+        The historical flat kwargs (``capacity_extra=..., wal_dir=...``)
+        still work, as in the reference: they round-trip through
+        ``ServerConfig.from_kwargs`` with a ``DeprecationWarning``; passing
+        them beside a ``config`` raises ``ValueError``."""
+        if config is not None and legacy:
+            raise ValueError(
+                "pass either config=ServerConfig(...) or the legacy flat "
+                f"kwargs, not both (got legacy keys {sorted(legacy)})")
+        if config is None:
+            if legacy:
+                warnings.warn(
+                    "CFServer's flat keyword arguments are deprecated; "
+                    "pass config=ServerConfig(...) (see "
+                    "repro_torch.serving.config, ServerConfig.from_kwargs "
+                    "maps the old names)", DeprecationWarning, stacklevel=2)
+            config = ServerConfig.from_kwargs(**legacy)
         self.device = require_device(device, "CFServer")
         self.config = config
         self._rcfg = config.rotation

@@ -38,8 +38,9 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.tree import is_namedtuple, unflatten
+from repro_torch.tree import is_namedtuple, leaves as leaves_of, unflatten
 
 log = logging.getLogger(__name__)
 
@@ -189,8 +190,19 @@ def _as_template(arr: np.ndarray, tmpl: Any) -> Any:
     return arr
 
 
-def _restore_step(ckpt_dir: str, template: Any,
-                  step: int) -> tuple[Any, int, dict]:
+def _shard(arr: np.ndarray, tmpl: Any, sharding: Any) -> Any:
+    """This rank's block of a loaded leaf under a ``NamedSharding``
+    (``distributed.sharding.named``), on the mesh's device."""
+    if not isinstance(tmpl, torch.Tensor):
+        return _as_template(arr, tmpl)
+    block = np.ascontiguousarray(
+        arr[sharding.indices(arr.shape, dist.get_rank())])
+    return torch.as_tensor(block).to(device=sharding.device,
+                                     dtype=tmpl.dtype)
+
+
+def _restore_step(ckpt_dir: str, template: Any, step: int,
+                  shardings: Any = None) -> tuple[Any, int, dict]:
     d = os.path.join(ckpt_dir, f"step_{step:010d}")
     try:
         with open(os.path.join(d, "meta.json")) as f:
@@ -199,8 +211,14 @@ def _restore_step(ckpt_dir: str, template: Any,
         raise CorruptCheckpointError(f"{d}: unreadable meta.json: {e!r}")
     manifest = meta["manifest"]
 
+    flat = _flatten(template)
+    shard_leaves = (leaves_of(shardings) if shardings is not None
+                    else [None] * len(flat))
+    if len(shard_leaves) != len(flat):
+        raise ValueError(f"{len(shard_leaves)} shardings for {len(flat)} "
+                         "leaves")
     leaves = []
-    for key, tmpl in _flatten(template):
+    for (key, tmpl), sharding in zip(flat, shard_leaves):
         entry = manifest[key]
         fname = entry["file"] if isinstance(entry, dict) else entry
         try:
@@ -214,31 +232,35 @@ def _restore_step(ckpt_dir: str, template: Any,
                 raise CorruptCheckpointError(
                     f"{d}: leaf {key!r} checksum mismatch "
                     f"(got {got:#010x}, want {entry['crc32']:#010x})")
-        leaves.append(_as_template(arr, tmpl))
+        leaves.append(_as_template(arr, tmpl) if sharding is None
+                      else _shard(arr, tmpl, sharding))
         del arr
     tree = unflatten(template, leaves)
     return tree, meta["step"], meta.get("extra", {})
 
 
-def restore(ckpt_dir: str, template: Any,
-            step: int | None = None) -> tuple[Any, int, dict]:
+def restore(ckpt_dir: str, template: Any, step: int | None = None,
+            shardings: Any = None) -> tuple[Any, int, dict]:
     """Load into the structure of ``template``; each tensor leaf lands on
     its template leaf's device and dtype (shapes come from the files, so an
-    empty tensor is template enough).
+    empty tensor is template enough).  ``shardings`` (optional, a tree of
+    ``NamedSharding`` from ``distributed.sharding.named`` matching
+    ``template``) re-lays each tensor leaf as this rank's block on the
+    mesh's device instead: checkpoints are mesh-shape agnostic.
 
     With ``step=None`` (the default), tries the newest step first and
     falls back to earlier steps if a leaf fails its CRC32 check; raises
     ``CorruptCheckpointError`` only when *every* step is corrupt.  An
     explicit ``step`` is loaded strictly — corruption raises."""
     if step is not None:
-        return _restore_step(ckpt_dir, template, step)
+        return _restore_step(ckpt_dir, template, step, shardings)
     steps = all_steps(ckpt_dir)
     if not steps:
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
     last_err: CorruptCheckpointError | None = None
     for s in reversed(steps):
         try:
-            return _restore_step(ckpt_dir, template, s)
+            return _restore_step(ckpt_dir, template, s, shardings)
         except CorruptCheckpointError as e:
             log.warning("checkpoint step %d corrupt, falling back to the "
                         "previous step: %s", s, e)

@@ -10,13 +10,28 @@ keeps the legacy ``(uid, info)`` protocol with the same answers as the
 reference's.  ``data.__all__`` is the reference's (the recsys streams
 landed with the recsys model), and its rating generators give the
 reference's arrays for the same seed; ``distributed.__all__`` is the
-reference's less its mesh-only names and the GNN rule; ``configs.__all__``
+reference's; ``configs.__all__``
 and ``training.__all__`` are the reference's; ``models.__all__`` is the
 reference's less the GNN family.  Importing the LM surface in a fresh
 interpreter loads no module of ``jax`` or ``repro``.  A CPU server and the
 reference's server onboard the same ratings through the legacy unpacking:
 user ids, rungs, statuses and twin flags exact (a latency is a wall-clock
-reading, so only its key mapping is held).
+reading, so only its key mapping is held).  ``CFServer`` takes the
+reference's flat keyword arguments with its ``DeprecationWarning`` and
+refuses them beside a config, as the reference does.
+
+The signature survey walks every module of ``repro`` (and its namespace
+package ``repro.launch``) and every public function and class defined
+there: the port has the module and the name, and a call written for the
+reference is one the port accepts.  Every parameter (or dataclass /
+NamedTuple field) of the reference is a parameter of the port, except the
+JAX-only knobs of ``SURVEY_ALLOWED`` (the port dispatches by device, runs
+eagerly, takes a process group or mesh where the reference takes mesh
+axes or specs, and a ``torch.Generator`` ``gen`` for a ``jax.random``
+``key``); every parameter the port adds has a default, or is the
+``gen`` that replaces ``key``.  ``SURVEY_NOT_PORTED`` names what is still
+to be ported: the dry run (``launch/roofline.py``, ``launch/dryrun.py``)
+and ``steps.jit_cell``.
 """
 from __future__ import annotations
 
@@ -150,9 +165,8 @@ def test_data_plant_twins_matches_reference():
 
 # Every name of ``repro.data`` is ported (the recsys streams last).
 DATA_NOT_PORTED: set[str] = set()
-# Mesh-only names of ``repro.distributed``: they wait for the dry-run group
-# (ROADMAP Queue 1, item 4.4).
-DISTRIBUTED_NOT_PORTED = {"MeshAxes", "named", "zero_extend", "mesh_axes"}
+# Every name of ``repro.distributed`` is ported (the mesh names last).
+DISTRIBUTED_NOT_PORTED: set[str] = set()
 # Every model family is ported (the GNN family last).
 MODELS_NOT_PORTED: set[str] = set()
 
@@ -168,10 +182,11 @@ def test_data_all_is_the_reference_less_recsys_streams():
 
 
 def test_distributed_all_is_the_reference_less_mesh_names():
+    """No name is missing any more: the mesh names are ported."""
     import repro.distributed as jdist
     import repro_torch.distributed as tdist
     assert set(tdist.__all__) == set(jdist.__all__) - DISTRIBUTED_NOT_PORTED
-    assert DISTRIBUTED_NOT_PORTED <= set(jdist.__all__)
+    assert tdist.__all__ == jdist.__all__
     for name in tdist.__all__:
         assert getattr(tdist, name).__module__.startswith("repro_torch.")
 
@@ -280,3 +295,116 @@ def test_legacy_onboard_unpacking_matches_reference(rng):
         assert isinstance(jinfo["ms"], float)
     assert [srv.onboard_user(r)["twin_found"] for r in (R[3], fresh)] == \
         [jsrv.onboard_user(r)["twin_found"] for r in (R[3], fresh)]
+
+
+# ---------------------------------------------------------------------------
+# The signature survey
+# ---------------------------------------------------------------------------
+
+# JAX-only knobs the port may drop (``use_pallas``, ``interpret``: it
+# dispatches by device; ``unroll``: it runs eagerly; ``rows_spec``,
+# ``block_spec``, ``axes``: its collectives take a group or mesh; ``key``:
+# it takes a ``torch.Generator``) or add (``device``).
+SURVEY_ALLOWED = {"use_pallas", "interpret", "unroll", "rows_spec",
+                  "block_spec", "axes", "key", "device"}
+# The port's name for an allowed knob it replaces.
+SURVEY_REPLACED = {"gen": "key"}
+# Still to be ported (ROADMAP Queue 1, item 4.5).
+SURVEY_NOT_PORTED = {"launch.roofline", "launch.dryrun",
+                     "launch.steps.jit_cell"}
+
+
+def _survey_modules() -> list[str]:
+    import pkgutil
+    import repro
+    names = [m.name.removeprefix("repro.") for m in pkgutil.walk_packages(
+        repro.__path__, "repro.") if not m.name.split(".")[-1].startswith(
+            "_")]
+    launch = Path(repro.__path__[0]) / "launch"
+    names += [f"launch.{p.stem}" for p in sorted(launch.glob("*.py"))
+              if not p.stem.startswith("_")]
+    return sorted(set(names))
+
+
+def _params(obj):
+    """(name -> has a default, or is *args/**kwargs) of a function or a
+    class's fields or constructor."""
+    import inspect
+    if inspect.isclass(obj) and dataclasses.is_dataclass(obj):
+        return {f.name: (f.default is not dataclasses.MISSING or
+                         f.default_factory is not dataclasses.MISSING)
+                for f in dataclasses.fields(obj) if f.init}
+    if inspect.isclass(obj) and hasattr(obj, "_fields"):
+        return {f: f in obj._field_defaults for f in obj._fields}
+    try:
+        sig = inspect.signature(obj)
+    except (TypeError, ValueError):
+        return None
+    return {p.name: (p.default is not p.empty or p.kind in (
+        p.VAR_POSITIONAL, p.VAR_KEYWORD)) for p in sig.parameters.values()}
+
+
+@pytest.mark.parametrize("module", _survey_modules())
+def test_signatures_match_the_reference(module):
+    import importlib
+    import inspect
+    if module in SURVEY_NOT_PORTED:
+        with pytest.raises(ImportError):
+            importlib.import_module(f"repro_torch.{module}")
+        return
+    jmod = importlib.import_module(f"repro.{module}")
+    tmod = importlib.import_module(f"repro_torch.{module}")
+    faults = []
+    for name, obj in vars(jmod).items():
+        if name.startswith("_") or not (inspect.isfunction(obj) or
+                                        inspect.isclass(obj)):
+            continue
+        if obj.__module__ != jmod.__name__:
+            continue
+        if f"{module}.{name}" in SURVEY_NOT_PORTED:
+            assert not hasattr(tmod, name), f"{name} is ported: update"
+            continue
+        tobj = getattr(tmod, name, None)
+        if tobj is None:
+            faults.append(f"{name}: missing")
+            continue
+        want, got = _params(obj), _params(tobj)
+        if want is None or got is None:
+            continue
+        missing = set(want) - set(got) - SURVEY_ALLOWED
+        added = {p for p, optional in got.items() if p not in want
+                 and not optional and p not in SURVEY_ALLOWED
+                 and SURVEY_REPLACED.get(p) not in want}
+        if missing:
+            faults.append(f"{name}: lacks {sorted(missing)}")
+        if added:
+            faults.append(f"{name}: requires {sorted(added)}")
+    assert not faults, faults
+
+
+def test_survey_covers_the_package():
+    mods = _survey_modules()
+    assert {"launch.mesh", "launch.steps", "models.moe_ep",
+            "distributed.sharding", "serving.cf_server",
+            "core.similarity"} <= set(mods)
+    assert SURVEY_NOT_PORTED - {"launch.steps.jit_cell"} <= set(mods)
+
+
+def test_cf_server_takes_legacy_keywords_with_a_warning():
+    """The reference's flat keywords: the same server, the same warning;
+    beside a config they raise ``ValueError`` in both packages."""
+    R = make_ratings(np.random.default_rng(3), n=40, m=30)
+    with pytest.warns(DeprecationWarning):
+        jsrv = jserving.CFServer(R, capacity_extra=8, c_probes=4)
+    with pytest.warns(DeprecationWarning, match="ServerConfig"):
+        srv = serving.CFServer(R, capacity_extra=8, c_probes=4,
+                               device="cpu")
+    assert (srv.k_cap, srv.c) == (jsrv.k_cap, jsrv.c) == (8, 4)
+    assert srv.config == serving.ServerConfig.from_kwargs(capacity_extra=8,
+                                                          c_probes=4)
+    for mod, kw in ((jserving, {}), (serving, {"device": "cpu"})):
+        with pytest.raises(ValueError, match="not both"):
+            mod.CFServer(R, mod.ServerConfig(), capacity_extra=8, **kw)
+    with pytest.warns(DeprecationWarning), \
+            pytest.raises(TypeError, match="unexpected keyword"):
+        serving.CFServer(R, no_such_option=1, device="cpu")

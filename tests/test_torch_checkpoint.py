@@ -2,7 +2,8 @@
 ``TestCheckpointCRC`` from ``tests/test_resilience.py``, the layout details
 (leaf keys, stale tmp sweep, ``keep_last``), and the cross-package
 contract — a ``CFState`` checkpoint written by either package is restored
-by the other.
+by the other — and ``restore(..., shardings=named(mesh, specs))``, which
+gives each of two spawned gloo ranks its block of every leaf.
 
 Tolerance: none.  Leaves are raw ``.npy`` bytes: every restored leaf must
 equal the saved one exactly, in value and dtype.
@@ -148,3 +149,77 @@ def test_cfstate_checkpoint_across_packages(tmp_path, rng, direction):
         assert out[key].dtype == ref[key].dtype, key
         assert out[key].shape == ref[key].shape, key
         np.testing.assert_array_equal(out[key], ref[key], err_msg=key)
+
+
+_RESTORE_RANK = r"""
+import sys
+import numpy as np, torch, torch.distributed as dist
+from repro_torch.distributed import named
+from repro_torch.distributed.sharding import P
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.training import checkpoint
+ckpt, store_path, rank, dst = sys.argv[1], sys.argv[2], int(sys.argv[3]), \
+    sys.argv[4]
+dist.init_process_group("gloo", store=dist.FileStore(store_path, 2),
+                        rank=rank, world_size=2)
+mesh = make_mesh((2, 1), ("data", "model"), device_type="cpu")
+specs = {"a": P("data", None), "b": P(("data", "model")),
+         "c": P(None, "data"), "d": P(), "n": P()}
+template = {"a": torch.empty(0), "b": torch.empty(0, dtype=torch.int32),
+            "c": torch.empty(0, dtype=torch.bfloat16), "d": torch.empty(0),
+            "n": 0}
+tree, step, _ = checkpoint.restore(ckpt, template,
+                                   shardings=named(mesh, specs))
+dist.destroy_process_group()
+assert isinstance(tree["n"], int) and tree["c"].dtype == torch.bfloat16
+np.savez(dst, step=step, n=tree["n"], c=tree["c"].float().numpy(),
+         **{k: tree[k].numpy() for k in ("a", "b", "d")})
+"""
+
+
+def test_restore_with_shardings_gives_each_rank_its_block(tmp_path, rng):
+    """``restore(..., shardings=named(mesh, specs))`` on two spawned gloo
+    ranks over a (2, 1) mesh: each rank gets its block of every leaf (rows,
+    a multi-axis split, columns of a bf16 leaf) and the whole of a
+    replicated one, exactly."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    tree = {"a": torch.as_tensor(rng.normal(size=(8, 6)), dtype=torch.float32),
+            "b": torch.arange(16, dtype=torch.int32),
+            "c": torch.as_tensor(rng.normal(size=(4, 6))).to(torch.bfloat16),
+            "d": torch.as_tensor(rng.normal(size=(3,)), dtype=torch.float32),
+            "n": 7}
+    checkpoint.save(str(tmp_path / "ckpt"), 5, tree)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RESTORE_RANK, str(tmp_path / "ckpt"),
+         str(tmp_path / "store"), str(r), str(tmp_path / f"r{r}.npz")],
+        env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True) for r in range(2)]
+    try:
+        errs = [p.communicate(timeout=240)[1] for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        pytest.fail("spawned ranks did not finish in 240 s")
+    for p, err in zip(procs, errs):
+        assert p.returncode == 0, err[-3000:]
+    for r in range(2):
+        got = np.load(tmp_path / f"r{r}.npz")
+        assert int(got["step"]) == 5 and int(got["n"]) == 7
+        assert np.array_equal(got["a"], tree["a"].numpy()[4 * r:4 * r + 4])
+        assert np.array_equal(got["b"], tree["b"].numpy()[8 * r:8 * r + 8])
+        assert np.array_equal(got["c"],
+                              tree["c"].float().numpy()[:, 3 * r:3 * r + 3])
+        assert np.array_equal(got["d"], tree["d"].numpy())
+
+
+def test_restore_shardings_must_match_the_template(tmp_path, rng):
+    from repro_torch.distributed.sharding import NamedSharding, P
+    checkpoint.save(str(tmp_path), 1, _tree(rng))
+    with pytest.raises(ValueError, match="shardings"):
+        checkpoint.restore(str(tmp_path), _tree(rng),
+                           shardings={"a": NamedSharding(None, P())})

@@ -4,8 +4,10 @@
   * World size 1, in this process (gloo over a ``HashStore``): the loss and
     every gradient leaf against ``repro.models.gnn_ep.loss_full_ep`` on a
     one-device mesh.
-  * World size 2, two spawned ranks (gloo over a ``FileStore``), each
-    holding half of the edge list: the loss and every gradient leaf against
+  * World size 2, two spawned ranks (gloo over a ``FileStore``) on a
+    (2, 1) mesh, each holding its half of the edge list
+    (``named(mesh, gnn_shardings(...))``) and naming the mesh's axes in its
+    ``GNNEPInfo``: the loss and every gradient leaf against
     ``repro.models.gnn.loss_full`` on the graph of
     ``tests/test_distributed.py`` (64 nodes, 192 edges plus self-loops),
     within that file's bounds: loss 1e-5, gradients 1e-6.  The two ranks'
@@ -171,7 +173,8 @@ import numpy as np, torch, torch.distributed as dist
 torch.set_num_threads(1)
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs.base import GNNConfig
-from repro_torch.distributed import gnn_shardings
+from repro_torch.distributed import gnn_shardings, mesh_axes, named
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.gnn_ep import GNNEPInfo, loss_full_ep
 from repro_torch.training.train_loop import value_and_grad
 src, store_path, rank, dst = sys.argv[1], sys.argv[2], int(sys.argv[3]), \
@@ -182,15 +185,18 @@ data = np.load(src)
 cfg = GNNConfig(name="g", n_layers=2, d_hidden=8, n_heads=8, n_classes=7)
 p = {l: {k: data[f"p/{l}/{k}"] for k in ("W", "a_src", "a_dst")}
      for l in ("l1", "l2")}
-rules = gnn_shardings(cfg, 2, "train_full")["inputs"]
+mesh = make_mesh((2, 1), ("data", "model"), device_type="cpu")
+rules = named(mesh, gnn_shardings(cfg, mesh_axes(mesh),
+                                  "train_full")["inputs"])
 batch = {}
 for k in ("feats", "edge_src", "edge_dst", "labels", "mask"):
     a = data[f"b/{k}"]
     if k.startswith("edge"):           # this rank's rows of the edge list
-        a = a[rules[k].slice(a.shape[0], rank)]
+        a = a[rules[k].indices(a.shape, rank)]
     batch[k] = torch.as_tensor(a)
 loss, grads = value_and_grad(
-    lambda q, b: loss_full_ep(q, b, cfg, GNNEPInfo()),
+    lambda q, b: loss_full_ep(q, b, cfg, GNNEPInfo(axes=("data", "model"),
+                                                   mesh=mesh)),
     params_from_numpy(p, "cpu"), batch)
 out = {"loss": loss.numpy(), "n_edges": batch["edge_src"].shape[0]}
 for l in ("l1", "l2"):

@@ -32,7 +32,10 @@ largest |host value|, losses within 1e-5 relative, each gradient leaf
 within 1e-4 of its largest |host value| (``index_add_`` adds with atomics
 in no fixed order on the card); the edge-parallel GAT on a one-rank NCCL
 group, in chunks that do not divide the edge count, against
-``gnn.loss_full`` on the CPU.
+``gnn.loss_full`` on the CPU.  Expert parallelism on a one-rank NCCL group
+(a (1, 1) mesh): ``moe_ffn_ep`` against ``moe_ffn`` on the card where
+nothing drops, and a tiny OLMoE prefill cell through ``build_cell`` against
+the plain prefill on the CPU (the LM bounds, ``_lm_close``).
 """
 from __future__ import annotations
 
@@ -1376,3 +1379,90 @@ def test_edge_parallel_gat_on_card_matches_plain_cpu(nccl1, monkeypatch):
     assert abs(float(got) - float(want)) <= GNN_LOSS_RTOL * abs(float(want))
     for a, b in zip(leaves(gg), leaves(wg)):
         assert a.is_cuda and _gnn_close(a, b, GNN_GRAD_RTOL)
+
+
+# ---------------------------------------------------------------------------
+# Expert parallelism (models.moe_ep) on a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_ffn_ep_on_card_matches_moe_ffn(nccl1, dtype):
+    """``moe_ffn_ep`` on a (1, 1) mesh over a one-rank NCCL group against
+    ``moe_ffn`` on the card at a capacity where nothing drops (capacity
+    factor E/k: every expert may take every token): ``y``, the aux loss and
+    the gradients of x, router, w_in and w_out by ``_lm_close``."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.distributed.sharding import P
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.moe import moe_ffn
+    from repro_torch.models.moe_ep import MoEEPInfo, moe_ffn_ep
+    cfg = MoEConfig(n_experts=8, top_k=2, d_ff_expert=32,
+                    capacity_factor=4.0)
+    g = torch.Generator().manual_seed(6)
+    dt = getattr(torch, dtype)
+
+    def w(*shape):
+        return (torch.randn(shape, generator=g) * shape[-2] ** -0.5).to(dt)
+    ins = [torch.randn((2, 64, 64), generator=g).to(dt),
+           torch.randn((64, 8), generator=g) * 0.125,
+           w(8, 64, 64), w(8, 32, 64)]
+    ct = torch.randn((2, 64, 64), generator=g).to(nccl1).to(dt)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    info = MoEEPInfo(dp=("data",), mp="model", mp_size=1,
+                     win_spec=P("model", None, "data"),
+                     wout_spec=P("model", None, "data"),
+                     acts_spec=P("data", None, None), mesh=mesh)
+    outs = []
+    for fn in (lambda *a: moe_ffn(a[0], a[1], a[2], a[3], None, cfg,
+                                  "swiglu", group_size=128),
+               lambda *a: moe_ffn_ep(*a, cfg, "swiglu", info)):
+        leaves_ = [t.to(nccl1).requires_grad_() for t in ins]
+        y, aux = fn(*leaves_)
+        grads = torch.autograd.grad((y.float() * ct.float()).sum() + aux,
+                                    leaves_)
+        outs.append((y, aux, grads))
+    (wy, waux, wg), (y, aux, gr) = outs
+    assert y.is_cuda and _lm_close(y, wy, dtype)
+    assert abs(float(aux.detach()) - float(waux.detach())) <= \
+        1e-5 * abs(float(waux.detach()))
+    for a, b in zip(gr, wg):
+        assert _lm_close(a, b, dtype, grad=True)
+
+
+def test_olmoe_prefill_cell_through_moe_ep_on_card(nccl1, monkeypatch):
+    """A tiny OLMoE prefill cell through ``build_cell`` on a (1, 1) mesh of
+    the card: every layer takes ``moe_ffn_ep``, and at a capacity where
+    nothing drops the logits and cache equal ``prefill`` without the hook
+    (``moe_ffn``) on the CPU, by ``_lm_close``."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tlm
+    from repro_torch.tree import tree_map
+    cfg = _tiny_lm("olmoe-1b-7b", "float32")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    spec = dataclasses.replace(get_arch("olmoe-1b-7b"), config=cfg)
+    shape = ShapeSpec("p", "prefill", {"seq_len": 32, "global_batch": 2})
+    calls = []
+    real = tlm.moe_ffn_ep
+    monkeypatch.setattr(tlm, "moe_ffn_ep",
+                        lambda *a: calls.append(1) or real(*a))
+    cell = steps.build_cell(spec, shape, make_mesh((1, 1),
+                                                   ("data", "model")))
+    params = tlm.init_params(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        logits, cache = cell.fn(tree_map(lambda t: t.to(nccl1), params),
+                                {"tokens": tokens.to(nccl1)})
+        wlogits, wcache = tlm.prefill(params, tokens, cfg)
+    assert len(calls) == cfg.n_layers
+    assert _lm_close(logits, wlogits, "float32")
+    for k in wcache:
+        if k == "ring_pos":
+            assert torch.equal(cache[k].cpu(), wcache[k])
+        else:
+            assert _lm_close(cache[k], wcache[k], "float32"), k

@@ -1,18 +1,16 @@
 """Port parity of ``repro_torch.launch.steps`` against
 ``repro.launch.steps``: the four analytic FLOP counts equal the
 reference's exactly for every registered architecture and shape;
-``build_cell``'s arguments for the recsys and cf families have the
-shapes and dtypes of the reference's ``ShapeDtypeStruct``s (on a one-device
-mesh), its row splits agree with the reference's partition specs for the
-params and inputs; for the lm family (train, prefill and decode cells of
-the five LM architectures) the arguments' shapes and dtypes and the FLOPs
-equal the reference's, the tokens and the cache split by batch rows where
-the reference's specs name a data axis, and the params are replicated;
-for the gnn family (all four registered shapes) the same, the inputs
-split by rows where the reference's specs do, except that ``train_full``
-holds feats, labels and mask whole (its edge-parallel loss reads them on
-every rank).  A train cell of the tiny gemma3-1b runs one step from
-zeros; one of the tiny molecule cell from seeded weights equals the
+``build_cell`` on a (1, 1) mesh (a one-rank gloo group here, against the
+reference's one-device mesh) gives, for every registered cell of the
+four families, arguments with the shapes and dtypes of the reference's
+``ShapeDtypeStruct``s, and in-specs (the optimizer state's ZeRO extension
+included), out-specs and donated arguments equal to the reference's as
+tuples, except that the gnn ``train_full`` cell holds labels and mask
+whole as well as feats (its edge-parallel loss reads them on every rank).
+The recsys tables' rows split evenly over meshes of 2, 4 and 512 ranks
+(a fake process group).  A train cell of the tiny gemma3-1b runs one step
+from zeros; one of the tiny molecule cell from seeded weights equals the
 reference's step within float32 tolerance."""
 from __future__ import annotations
 
@@ -31,10 +29,12 @@ from repro.launch.mesh import _mk
 import repro_torch.configs as tcfg
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.data import CTRStream
-from repro_torch.distributed.sharding import Replicated, Rows
+from repro_torch.distributed.sharding import named
 from repro_torch.launch import steps as tsteps
+from repro_torch.launch.mesh import make_mesh, one_rank_mesh
 from repro_torch.tree import leaves, unflatten
 from tests.conftest import reduced_spec
+from tests.test_torch_sharding import assert_specs_equal
 
 torch.set_num_threads(2)
 
@@ -53,6 +53,25 @@ def mesh():
     return _mk((1, 1), ("data", "model"))
 
 
+@pytest.fixture
+def tmesh():
+    """The port's (1, 1) mesh over a one-rank gloo group, closed after."""
+    with one_rank_mesh("cpu") as m:
+        yield m
+
+
+def _assert_cell_specs(cell, jcell):
+    assert len(cell.in_specs) == len(jcell.in_specs)
+    for got, want in zip(cell.in_specs, jcell.in_specs):
+        assert_specs_equal(got, want)
+    if jcell.out_specs is None:
+        assert cell.out_specs is None
+    else:
+        for got, want in zip(cell.out_specs, jcell.out_specs):
+            assert_specs_equal(got, want)
+    assert cell.donate == jcell.donate
+
+
 def test_registries_agree():
     assert tcfg.list_archs() == jcfg.list_archs()
 
@@ -66,16 +85,10 @@ def test_model_flops_equal_the_reference(arch, shape):
     assert got == want and type(got) is type(want)
 
 
-def _row_split(spec) -> bool:
-    """A reference partition spec splits rows when its first entry names
-    a mesh axis."""
-    return len(spec) > 0 and spec[0] is not None
-
-
 @pytest.mark.parametrize("arch,shape", CELL_CASES)
-def test_build_cell_args_match_the_reference(arch, shape, mesh):
+def test_build_cell_args_match_the_reference(arch, shape, mesh, tmesh):
     tspec, jspec = tcfg.get_arch(arch), jcfg.get_arch(arch)
-    cell = tsteps.build_cell(tspec, tspec.shape(shape))
+    cell = tsteps.build_cell(tspec, tspec.shape(shape), tmesh)
     jcell = jsteps.build_cell(jspec, jspec.shape(shape), mesh)
     assert cell.name == jcell.name
     assert cell.model_flops == jcell.model_flops
@@ -85,28 +98,18 @@ def test_build_cell_args_match_the_reference(arch, shape, mesh):
         assert t.is_meta
         assert tuple(t.shape) == s.shape
         assert str(t.dtype).removeprefix("torch.") == np.dtype(s.dtype).name
-    # Row splits of the params and the inputs (the optimizer state's
-    # ZeRO extension is a mesh rule the port does not have).
-    tsh, jsh = cell.shardings, jcell.in_specs
-    pairs = [(tsh[0], jsh[0]), (tsh[-1], jsh[-1])]
-    if jspec.family == "cf" and len(tsh) == 3:
-        pairs = list(zip(tsh, jsh))
-    for t, j in pairs:
-        tl = leaves(t)
-        jl = jax.tree.leaves(j, is_leaf=lambda x: isinstance(x, P))
-        assert len(tl) == len(jl)
-        for rule, spec in zip(tl, jl):
-            assert isinstance(rule, (Rows, Replicated))
-            assert isinstance(rule, Rows) == _row_split(spec), (rule, spec)
+    # The params', the optimizer state's and the inputs' specs, and the
+    # outputs'.
+    _assert_cell_specs(cell, jcell)
 
 
-def test_train_cell_runs_a_step_on_zeros():
+def test_train_cell_runs_a_step_on_zeros(tmesh):
     """The recsys train cell's function on zeros at a tiny batch: the
     reference launcher's start, one AdamW step; the loss is ln 2."""
     spec = reduced_spec("autoint")
     shape = ShapeSpec("train_batch", "train", {"batch": 16})
     cell = tsteps.build_cell(dataclasses.replace(spec, shapes=(shape,)),
-                             shape)
+                             shape, tmesh)
     params, opt_state, _ = unflatten(cell.args, [
         torch.zeros(t.shape, dtype=t.dtype) for t in leaves(cell.args)])
     batch = {k: torch.as_tensor(v)
@@ -117,25 +120,24 @@ def test_train_cell_runs_a_step_on_zeros():
 
 
 @pytest.mark.parametrize("arch", ["gemma3-1b", "gat-cora"])
-def test_lm_and_gnn_cells_raise(arch):
+def test_lm_and_gnn_cells_raise(arch, tmesh):
     """The lm and gnn families build every registered shape and raise only
     on a kind they do not have."""
     spec = tcfg.get_arch(arch)
     odd = ShapeSpec("odd", "retrieval", {"seq_len": 8, "global_batch": 2,
                                          "d_feat": 4})
     with pytest.raises(ValueError, match=f"unknown {spec.family.upper()}"):
-        tsteps.build_cell(spec, odd)
+        tsteps.build_cell(spec, odd, tmesh)
 
 
 @pytest.mark.parametrize("arch,shape", GNN_CASES)
-def test_gnn_cell_args_match_the_reference(arch, shape, mesh):
+def test_gnn_cell_args_match_the_reference(arch, shape, mesh, tmesh):
     """Every GNN cell builds: its meta arguments have the reference's
     shapes and dtypes leaf by leaf, its name and FLOPs are the
-    reference's, the params are replicated, and each input splits by rows
-    exactly where the reference's spec does, except that ``train_full``
-    holds labels and mask whole as well as feats."""
+    reference's, and its specs are the reference's, except that
+    ``train_full`` holds labels and mask whole as well as feats."""
     tspec, jspec = tcfg.get_arch(arch), jcfg.get_arch(arch)
-    cell = tsteps.build_cell(tspec, tspec.shape(shape))
+    cell = tsteps.build_cell(tspec, tspec.shape(shape), tmesh)
     jcell = jsteps.build_cell(jspec, jspec.shape(shape), mesh)
     assert cell.name == jcell.name
     assert cell.model_flops == jcell.model_flops
@@ -144,17 +146,16 @@ def test_gnn_cell_args_match_the_reference(arch, shape, mesh):
     for t, s in zip(got, want):
         assert t.is_meta and tuple(t.shape) == s.shape
         assert str(t.dtype).removeprefix("torch.") == np.dtype(s.dtype).name
-    assert all(isinstance(r, Replicated) for r in leaves(cell.shardings[0]))
-    rules, specs = cell.shardings[-1], jcell.in_specs[-1]
-    assert list(rules) == list(specs)
     full = tspec.shape(shape).kind == "train_full"
     if full:
-        assert specs["feats"] == P(None, None)
-    for k, rule in rules.items():
-        if full and k in ("labels", "mask"):
-            assert isinstance(rule, Replicated)
-            continue
-        assert isinstance(rule, Rows) == _row_split(specs[k]), (k, rule)
+        assert jcell.in_specs[-1]["feats"] == P(None, None)
+        assert tuple(jcell.in_specs[-1]["labels"]) == ("data",)
+        for k in ("labels", "mask"):
+            assert tuple(cell.in_specs[-1][k]) == (None,)
+        want_in = dict(jcell.in_specs[-1], labels=P(None), mask=P(None))
+        jcell = dataclasses.replace(
+            jcell, in_specs=(*jcell.in_specs[:-1], want_in))
+    _assert_cell_specs(cell, jcell)
 
 
 def test_gnn_molecule_cell_step_matches_the_reference():
@@ -170,8 +171,9 @@ def test_gnn_molecule_cell_step_matches_the_reference():
     tspec, jspec = tcfg.get_arch("gat-cora"), jcfg.get_arch("gat-cora")
     tshape = ShapeSpec("molecule", "train_batched", dims)
     jshape = jcfg.base.ShapeSpec("molecule", "train_batched", dims)
-    cell = tsteps.build_cell(dataclasses.replace(tspec, shapes=(tshape,)),
-                             tshape)
+    with one_rank_mesh("cpu") as tm:
+        cell = tsteps.build_cell(dataclasses.replace(tspec, shapes=(tshape,)),
+                                 tshape, tm)
     jcell = jsteps.build_cell(dataclasses.replace(jspec, shapes=(jshape,)),
                               jshape, _mk((1, 1), ("data", "model")))
     jp = jgnn.init_params(jax.random.PRNGKey(3), jspec.config, 16, 2)
@@ -189,13 +191,13 @@ def test_gnn_molecule_cell_step_matches_the_reference():
 
 
 @pytest.mark.parametrize("arch,shape", LM_CASES)
-def test_lm_cell_args_match_the_reference(arch, shape, mesh):
+def test_lm_cell_args_match_the_reference(arch, shape, mesh, tmesh):
     """Meta arguments of the train, prefill and decode cells at the full
     registered configs: the reference's shapes and dtypes leaf by leaf,
-    its name and FLOPs; tokens and cache split by batch rows exactly where
-    the reference's specs put a data axis on the batch."""
+    its name and FLOPs, and its in-specs, out-specs and donated
+    arguments."""
     tspec, jspec = tcfg.get_arch(arch), jcfg.get_arch(arch)
-    cell = tsteps.build_cell(tspec, tspec.shape(shape))
+    cell = tsteps.build_cell(tspec, tspec.shape(shape), tmesh)
     jcell = jsteps.build_cell(jspec, jspec.shape(shape), mesh)
     assert cell.name == jcell.name
     assert cell.model_flops == jcell.model_flops
@@ -204,26 +206,10 @@ def test_lm_cell_args_match_the_reference(arch, shape, mesh):
     for t, s in zip(got, want):
         assert t.is_meta and tuple(t.shape) == s.shape
         assert str(t.dtype).removeprefix("torch.") == np.dtype(s.dtype).name
-    assert all(isinstance(r, Replicated) for r in leaves(cell.shardings[0]))
-    kind = tspec.shape(shape).kind
-    if kind == "decode":
-        tl, jl = leaves(cell.shardings[1:]), jax.tree.leaves(
-            jcell.in_specs[1:], is_leaf=lambda x: isinstance(x, P))
-        assert len(tl) == len(jl)
-        for rule, spec in zip(tl, jl):
-            # the batch of the cache (axis 1) and of the tokens (axis 0)
-            # takes the data axes; ring_pos and pos name none
-            if isinstance(rule, Rows):
-                assert spec[rule.axis] is not None, (rule, spec)
-            else:
-                assert all(a is None for a in spec), (rule, spec)
-    else:
-        rule = cell.shardings[-1]["tokens"]
-        spec = jcell.in_specs[-1]["tokens"]
-        assert isinstance(rule, Rows) == _row_split(spec)
+    _assert_cell_specs(cell, jcell)
 
 
-def test_lm_train_cell_runs_a_step_on_zeros():
+def test_lm_train_cell_runs_a_step_on_zeros(tmesh):
     """The tiny gemma3-1b train cell on zeros: the launcher's start; every
     logit is 0, so the loss is ln V and no gradient moves a param."""
     spec = reduced_spec("gemma3-1b")
@@ -232,7 +218,8 @@ def test_lm_train_cell_runs_a_step_on_zeros():
                                             "global_batch": 2})
     cfg = _port_config(spec.config)
     cell = tsteps.build_cell(dataclasses.replace(tspec, config=cfg,
-                                                 shapes=(shape,)), shape)
+                                                 shapes=(shape,)), shape,
+                             tmesh)
     params, opt_state, _ = unflatten(cell.args, [
         torch.zeros(t.shape, dtype=t.dtype) for t in leaves(cell.args)])
     tokens = torch.randint(0, cfg.vocab_size, (2, 16), dtype=torch.int32)
@@ -253,11 +240,28 @@ def _port_config(jcfg_):
 @pytest.mark.parametrize("world_size", [2, 4, 512])
 def test_recsys_row_splits_divide(world_size):
     """Every table's rows split evenly over any world size dividing 512
-    (the tables are padded to it)."""
+    (the tables are padded to it): a (world_size, 1) mesh over a fake
+    process group."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
     spec = tcfg.get_arch("xdeepfm")
-    cell = tsteps.build_cell(spec, spec.shape("serve_p99"), world_size)
-    for t, rule in zip(leaves(cell.args[0]), leaves(cell.shardings[0])):
-        if isinstance(rule, Rows):
-            sl = rule.slice(t.shape[0], world_size - 1)
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        m = make_mesh((world_size, 1), ("data", "model"), device_type="cpu")
+        cell = tsteps.build_cell(spec, spec.shape("serve_p99"), m)
+        shardings = leaves(named(m, cell.in_specs[0]))
+    finally:
+        dist.destroy_process_group()
+    n_split = 0
+    for t, sh in zip(leaves(cell.args[0]), shardings):
+        if tuple(sh.spec[:1]) == (("data", "model"),):
+            n_split += 1
+            sl = sh.indices(tuple(t.shape), world_size - 1)[0]
             assert sl.stop == t.shape[0]
             assert sl.stop - sl.start == t.shape[0] // world_size
+            assert sh.shard_shape(tuple(t.shape))[0] * world_size == \
+                t.shape[0]
+        else:
+            assert all(p is None for p in sh.spec)
+    assert n_split >= 2

@@ -128,7 +128,9 @@ def test_launcher_from_zeros_matches_reference_steps(tiny, tmp_path):
 
 @pytest.mark.parametrize("flag", ["--multi-pod", "--debug-mesh"])
 def test_mesh_options_exit_with_a_message(tiny, tmp_path, flag):
-    with pytest.raises(SystemExit, match="JAX mesh"):
+    """The port has the reference's meshes now (``launch.mesh``), but its
+    launcher trains on one rank: a multi-rank mesh flag exits."""
+    with pytest.raises(SystemExit, match="multi-rank mesh"):
         launcher.main(_args("xdeepfm", tmp_path, 1, flag))
 
 

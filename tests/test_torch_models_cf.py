@@ -31,6 +31,7 @@ from repro_torch.bridge import lists_match, state_from_numpy
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import CF_SHAPES
 from repro_torch.distributed import local_state
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import cf
 from tests.conftest import make_ratings
 
@@ -127,8 +128,9 @@ def test_onboard_step_distributed(group1, seed):
     jout = jcf.onboard_step(js, jnp.asarray(R_new), jnp.asarray(probes),
                             jcfg, mesh_info=(("data",), mesh))
     local = local_state(state_from_numpy(arrays, "cpu"), 0, 1)
+    tmesh = make_mesh((1,), ("data",), device_type="cpu")
     tout = cf.onboard_step(local, torch.as_tensor(R_new), probes, cfg,
-                           distributed=True)
+                           mesh_info=(("data",), tmesh))
     _assert_burst(jout, tout)
     buffered = cf.onboard_step(state_from_numpy(arrays, "cpu"),
                                torch.as_tensor(R_new), probes, cfg)
@@ -142,7 +144,7 @@ def test_onboard_step_distributed_needs_a_group():
     with pytest.raises(RuntimeError, match="process group"):
         cf.onboard_step(state_from_numpy(arrays, "cpu"),
                         torch.as_tensor(R_new), probes, cfg,
-                        distributed=True)
+                        mesh_info=(("data",), None))
 
 
 @pytest.mark.parametrize("seed,n,m,k", [(0, 60, 24, 5), (1, 90, 33, 8)])

@@ -1,8 +1,9 @@
 """Port parity: ``repro_torch`` similarity measures, the similarity kernel's
 wrapper and the traditional burst against the JAX reference.
 
-Tolerances: similarity values agree within 1e-6 (1e-5 for the
-kernel-shaped (nq, m) x (m, n) products of random normals, 2e-2 for bf16 —
+Tolerances: similarity values agree within 1e-6 (``cosine_matrix`` in
+float32 and in bfloat16 ``compute_dtype`` too: both round the same rows;
+1e-5 for the kernel-shaped (nq, m) x (m, n) products of random normals, 2e-2 for bf16 —
 the bounds ``tests/test_kernels.py`` holds the Pallas kernel to).  Sorted
 lists match under ``bridge.lists_match``: ids exact except inside runs of
 values within the tolerance.  The kernel itself is held to its plain
@@ -165,3 +166,19 @@ def test_similarity_variant_by_nq(monkeypatch, nq, bm, dtype, tag):
                                             for t in (Q, R, qn, rn, out)]
     assert [c.value for c in cargs[5:8]] == [nq, n, m]
     assert fake.launches == 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cosine_matrix_compute_dtype_parity(rng, dtype):
+    """``compute_dtype``: the rows and their norms rounded to it and
+    divided there, the products summed in float32, as in the reference."""
+    R = make_ratings(rng)
+    ref = np.asarray(jsim.cosine_matrix(jnp.asarray(R),
+                                        compute_dtype=getattr(jnp, dtype)))
+    out = similarity.cosine_matrix(torch.as_tensor(R),
+                                   compute_dtype=getattr(torch, dtype))
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, atol=SIM_TOL, rtol=0)
+    if dtype == "bfloat16":
+        f32 = similarity.cosine_matrix(torch.as_tensor(R)).numpy()
+        assert np.abs(out.numpy() - f32).max() > SIM_TOL   # it did round

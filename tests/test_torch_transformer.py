@@ -306,10 +306,18 @@ def test_init_params_draws_from_the_generator():
 
 
 def test_moe_ep_hook_is_not_ported():
+    """The ``moe_ep`` hook selects ``moe_ffn_ep``, which needs its
+    ``MoEEPInfo``'s mesh and raises without one (the hook was a stub that
+    raised ``NotImplementedError`` until the expert-parallel path landed;
+    ``tests/test_torch_moe_ep.py`` runs it)."""
+    from repro_torch.distributed.sharding import P
+    from repro_torch.models.moe_ep import MoEEPInfo
     cfg = _cfg("olmoe-1b-7b", "float32")
     params = tlm.init_params(torch.Generator().manual_seed(0), cfg)
-    hooks = tlm.LMShardingHooks(moe_ep=object())
-    with pytest.raises(NotImplementedError, match="4.3"):
+    hooks = tlm.LMShardingHooks(moe_ep=MoEEPInfo(
+        dp=("data",), mp="model", mp_size=1, win_spec=P("model", None, None),
+        wout_spec=P("model", None, None), acts_spec=P(("data",), None, None)))
+    with pytest.raises(RuntimeError, match="info.mesh"):
         tlm.forward(params, torch.zeros((1, 8), dtype=torch.int32), cfg,
                     hooks)
     # the other hooks are accepted and change nothing

@@ -52,8 +52,10 @@ from repro_torch.core import onboard_batch_buffered, set0_cap
 from repro_torch.core import twinsearch_sharded as tsh
 from repro_torch.core.types import CFState
 from repro_torch.distributed import (ReplicatedArena, ReplicationConfig,
-                                     cf_shardings, local_state)
-from repro_torch.distributed.sharding import Replicated, Rows
+                                     cf_shardings, local_state, mesh_axes,
+                                     named)
+from repro_torch.distributed.sharding import Rows
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.serving.guard import RetryPolicy
 from tests.conftest import make_ratings
 
@@ -270,8 +272,21 @@ def test_no_process_group_raises(cases):
 @pytest.mark.parametrize("world", [1, 2, 4])
 @pytest.mark.parametrize("kind", ["build", "onboard"])
 def test_cf_shardings_rows(world, kind):
+    """On a (world, 1) mesh (a fake process group) the arena's leaves split
+    by even row slices over every axis; ``n_active``, the burst and its
+    probes are replicated."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
     cfg = get_arch("twinsearch-cf").config
-    spec = cf_shardings(cfg, world, kind)
+    assert not dist.is_initialized()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        mesh = make_mesh((world, 1), ("data", "model"), device_type="cpu")
+        spec = cf_shardings(cfg, mesh_axes(mesh), kind)
+        with pytest.raises(ValueError):
+            cf_shardings(cfg, mesh_axes(mesh), "train")
+    finally:
+        dist.destroy_process_group()
     n = 64
     if kind == "build":
         leaves = [spec["inputs"]["R"], *spec["out"]]
@@ -282,15 +297,14 @@ def test_cf_shardings_rows(world, kind):
         replicated = [st.n_active, spec["inputs"]["R_new"],
                       spec["inputs"]["probes"]]
     for leaf in leaves:
-        assert leaf == Rows(world)
-        got = [leaf.slice(n, r) for r in range(world)]
+        sh = named(mesh, leaf)
+        got = [sh.indices((n, n)[:len(leaf)], r)[0] for r in range(world)]
         assert got == [slice(r * n // world, (r + 1) * n // world)
                        for r in range(world)]
     for leaf in replicated:
-        assert isinstance(leaf, Replicated)
-        assert all(leaf.slice(n, r) == slice(0, n) for r in range(world))
-    with pytest.raises(ValueError):
-        cf_shardings(cfg, world, "train")
+        sh = named(mesh, leaf)
+        assert all(s == slice(None) for r in range(world)
+                   for s in sh.indices((n, n)[:len(leaf)], r))
 
 
 def test_local_state_cuts_views(cases):
