@@ -168,12 +168,28 @@ Phases, in order; the script exits non-zero as soon as a check fails:
                states; one step under the profiler (not molecule).  Counts
                zeroed before, read after: the GNN path launches none of the
                six kernels.  Prints ``{"gnn": {...}}``.
+ 12b. roofline — (a) ``python -m repro_torch.launch.dryrun --all`` in a
+               subprocess that sees no card (``CUDA_VISIBLE_DEVICES=""``):
+               88 records, 82 ok and 6 skipped (long_500k of gemma-7b,
+               granite-20b and olmoe-1b-7b on both meshes), its seconds and
+               one line per cell; (b) ``models.cf.build_step`` at 32,768 x
+               58,541 in bf16 and one xDeepFM serve_p99 forward on the card
+               under ``launch.trace.Counter``, each against the same call on
+               ``meta``: FLOPs, bytes and kernel calls equal, the kernel
+               launched once a counted call, the build's similarity call
+               2·32,768²·58,541 FLOP; (c) the (1, 1)-mesh roofline
+               (``jit_cell(...).lower(...).compile()``) of four cells that
+               earlier phases time, at their sizes (the build at 32,768
+               users, xDeepFM serve_p99, gemma3-1b prefill_32k at batch 1,
+               gat-cora ogb_products), and each measured time / bound.
+               Prints ``{"roofline": {...}}``.
  13. movielens — the same request script at 943 x 1,682 on the card and on
                the CPU (the plain versions), held to the parity tests'
                tolerances.
  14. summary — ``{"kernels": [...]}`` (all six kernels, each with the
                launches of the phases that drove it: 4, 6, 7, 8 and 9 for
-               the main path's three, 5 for the others and 10 for
+               the main path's three, 5 for the others, 10 for
+               ``embedding_bag``, and 12b for ``similarity`` and
                ``embedding_bag``; phases 11, 11b and 12 launch none), the
                nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
@@ -3721,6 +3737,192 @@ def run_gnn(torch, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 12b: the dry run and the roofline
+# ---------------------------------------------------------------------------
+
+# ``all_cells()`` on both production meshes: 41 cells counted on each, the
+# three ``skip_shapes`` (long_500k of gemma-7b, granite-20b, olmoe-1b-7b)
+# skipped on each.
+DRYRUN_RECORDS, DRYRUN_OK, DRYRUN_SKIPPED = 88, 82, 6
+DRYRUN_TIMEOUT_S = 600
+
+
+def dry_run_without_card() -> dict:
+    """``python -m repro_torch.launch.dryrun --all`` in a subprocess that
+    sees no card (``CUDA_VISIBLE_DEVICES=""``): every record ok or
+    skipped, as many as ``all_cells()`` gives on two meshes."""
+    import os
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="dryrun-") as tmp:
+        out = Path(tmp) / "dryrun.jsonl"
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "repro_torch.launch."
+                              "dryrun", "--all", "--out", str(out)],
+                             env=env, cwd=tmp, capture_output=True,
+                             text=True, timeout=DRYRUN_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        recs = ([json.loads(ln) for ln in out.read_text().splitlines()]
+                if out.exists() else [])
+    status = [r["status"] for r in recs]
+    for r in recs:
+        if r["status"] != "ok":
+            log(f"  {r['arch']}/{r['shape']}@{r['mesh']}: {r['status']}")
+            continue
+        t = r["roofline"]
+        log(f"  {r['arch']}/{r['shape']}@{r['mesh']}: "
+            f"{t['flops_per_device']:.4g} FLOP, {t['bytes_per_device']:.4g}"
+            f" B, {t['coll_bytes_per_device']:.4g} B collective a device; "
+            f"bound {max(t['t_compute_s'], t['t_memory_s'], t['t_collective_s']) * 1e3:.4g}"
+            f" ms ({t['dominant']}); peak "
+            f"{r['memory']['peak_bytes'] / 1e9:.3f} GB")
+    check(res.returncode == 0 and "dry-run complete: all cells ok"
+          in res.stdout and len(recs) == DRYRUN_RECORDS
+          and status.count("ok") == DRYRUN_OK
+          and status.count("skipped") == DRYRUN_SKIPPED,
+          f"the dry run without the card: {len(recs)} records, "
+          f"{status.count('ok')} ok, {status.count('skipped')} skipped, "
+          f"{status.count('error')} errors in {seconds:.1f} s (rc "
+          f"{res.returncode}; {res.stderr.strip()[-500:]})")
+    return {"seconds": seconds, "records": len(recs),
+            "ok": status.count("ok"), "skipped": status.count("skipped")}
+
+
+def counted_on_card_and_meta(torch, fn, card_args, meta_args, name: str
+                             ) -> dict:
+    """``fn`` on the card under the counter (launches counted) and on
+    ``meta`` under another; their FLOPs, bytes and kernel calls must be
+    equal, and the card must have launched ``name`` once a counted call."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.trace import Counter
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with torch.no_grad(), Counter() as card:
+        out = fn(*card_args)
+        torch.cuda.synchronize()
+    launches = launch_counts()[name]
+    with torch.no_grad(), Counter() as meta:
+        fn(*meta_args)
+    same = (card.flops, card.flops_f32, card.bytes, card.kernels) == (
+        meta.flops, meta.flops_f32, meta.bytes, meta.kernels)
+    calls = card.kernels.get(name, {}).get("calls", 0)
+    check(same and launches == calls >= 1,
+          f"{name}'s path counted on the card as on meta: "
+          f"{card.flops + card.flops_f32:.6g} FLOP ({card.flops_f32:.6g} "
+          f"fp32), {card.bytes:.6g} B, kernels {card.kernels} (meta: "
+          f"{meta.flops + meta.flops_f32:.6g}, {meta.bytes:.6g} B, "
+          f"{meta.kernels}); {launches} launches")
+    return {"flops": card.flops + card.flops_f32, "flops_f32":
+            card.flops_f32, "bytes": card.bytes, "kernels": card.kernels,
+            "launches": launches, "out": out}
+
+
+def roofline_of(spec, shape, mesh) -> dict:
+    """The (1, 1)-mesh roofline of ``spec`` at ``shape``, counted on meta
+    through ``jit_cell``."""
+    from repro_torch.launch.roofline import analyze
+    from repro_torch.launch.steps import build_cell, jit_cell
+    cell = build_cell(spec, shape, mesh)
+    compiled = jit_cell(cell, mesh).lower(*cell.args).compile()
+    terms = analyze(compiled, cell.model_flops)
+    return {**terms.as_dict(), "bound_s": terms.bound_time,
+            "trace_s": compiled.seconds}
+
+
+def run_roofline(torch, dev, measured: dict) -> dict:
+    """(a) the dry run of every cell without the card; (b) one
+    ``build_step`` at phase 9's 32,768 x 58,541 in bf16 and one xDeepFM
+    serve_p99 forward on the card under the counter, each equal to its
+    ``meta`` trace, the build's similarity FLOPs the kernel's formula;
+    (c) the (1, 1)-mesh roofline of four cells earlier phases time on the
+    card, at the sizes they run, and measured time / bound."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import CTRStream
+    from repro_torch.launch import trace
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import cf, recsys as rec
+    from repro_torch.tree import tree_map
+    t_phase = time.perf_counter()
+    metrics = {"dry_run": dry_run_without_card()}
+    log(f"  (a) dry run: {metrics['dry_run']}")
+
+    # (b) counted on the card and on meta.
+    g = torch.Generator(device=dev).manual_seed(SEED + 60)
+    R = torch.randint(0, 6, (N_USERS, DOUBAN_ITEMS), device=dev,
+                      generator=g).to(torch.bfloat16)
+    build = counted_on_card_and_meta(
+        torch, cf.build_step, (R,), (torch.empty_like(R, device="meta"),),
+        "similarity")
+    del build["out"], R
+    torch.cuda.empty_cache()
+    sim = build["kernels"]["similarity"]
+    want = 2.0 * N_USERS ** 2 * DOUBAN_ITEMS
+    check(sim["flops"] == want and sim["calls"] == 1,
+          f"build_step's similarity call counts 2·{N_USERS}²·{DOUBAN_ITEMS}"
+          f" = {want:.5g} FLOP ({sim['flops']:.5g}), "
+          f"{want / BF16_FLOPS_PER_S * 1e3:.1f} ms at 989 TFLOP/s")
+    metrics["build"] = build
+    spec = get_arch("xdeepfm")
+    params = rec.init_params(torch.Generator(device=dev).manual_seed(
+        SEED + 61), spec.config)
+    batch = to_device(torch, CTRStream(spec.config, spec.shape(
+        "serve_p99").dim("batch"), seed=SEED + 62)(0), dev)
+    batch.pop("label")
+    to_meta = lambda t: torch.empty_like(t, device="meta")   # noqa: E731
+    serve = counted_on_card_and_meta(
+        torch, lambda p, b: rec.forward(p, b, spec.config), (params, batch),
+        (tree_map(to_meta, params), tree_map(to_meta, batch)),
+        "embedding_bag")
+    check(bool(torch.isfinite(serve.pop("out")).all()),
+          "the counted xDeepFM serve_p99 forward is finite")
+    del params, batch
+    torch.cuda.empty_cache()
+    metrics["xdeepfm_serve"] = serve
+    log(f"  (b) build_step: {build['flops']:.6g} FLOP, {build['bytes']:.6g}"
+        f" B; xDeepFM serve_p99: {serve['flops']:.6g} FLOP, "
+        f"{serve['bytes']:.6g} B; equal on the card and on meta")
+
+    # (c) the roofline of four cells beside their measured times.
+    cf_spec, lm_spec, gnn_spec = (get_arch(a) for a in (
+        "twinsearch-cf", "gemma3-1b", "gat-cora"))
+    cells = {
+        "twinsearch-cf/build@32768": (cf_spec, ShapeSpec(
+            "douban_build", "build", {"n_users": N_USERS,
+                                      "n_items": DOUBAN_ITEMS}),
+            measured["build_s"]),
+        "xdeepfm/serve_p99": (spec, spec.shape("serve_p99"),
+                              measured["serve_p99_ms"] / 1e3),
+        "gemma3-1b/prefill_32k@batch1": (lm_spec, dataclasses.replace(
+            lm_spec.shape("prefill_32k"), dims={
+                **lm_spec.shape("prefill_32k").dims,
+                "global_batch": LM_PREFILL_BATCH}),
+            measured["prefill_32k_ms"] / 1e3),
+        "gat-cora/ogb_products": (gnn_spec, gnn_spec.shape("ogb_products"),
+                                  measured["ogb_products_s"]),
+    }
+    rooflines = {}
+    with trace.fake_world(1):
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cpu")
+        for name, (sp, sh, seconds) in cells.items():
+            r = roofline_of(sp, sh, mesh)
+            r.update(measured_s=seconds, ratio=seconds / r["bound_s"])
+            rooflines[name] = r
+            log(f"  (c) {name}: measured {seconds * 1e3:.4g} ms, bound "
+                f"{r['bound_s'] * 1e3:.4g} ms ({r['dominant']}: compute "
+                f"{r['t_compute_s'] * 1e3:.4g}, memory "
+                f"{r['t_memory_s'] * 1e3:.4g} ms), measured / bound "
+                f"{r['ratio']:.4g}; useful {r['useful_fraction']:.3g}")
+    metrics["cells"] = rooflines
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase {metrics['phase_s']:.1f} s")
+    return metrics
+
+
+# ---------------------------------------------------------------------------
 # Phase 13: MovieLens shape, card against CPU
 # ---------------------------------------------------------------------------
 
@@ -3893,6 +4095,14 @@ def main() -> int:
         gnn = run_gnn(torch, dev)
         torch.cuda.empty_cache()
 
+        log("== 12b. dry run and roofline")
+        roof = run_roofline(torch, dev, {
+            "build_s": cf_family["build_s"],
+            "serve_p99_ms": recsys["serve_p50_ms"],
+            "prefill_32k_ms": lm["gemma3_cells"]["prefill_32k"]["ms"],
+            "ogb_products_s": gnn["ogb_products"]["step_s_p50"]})
+        torch.cuda.empty_cache()
+
         log("== 13. MovieLens shape, card against CPU")
         run_movielens(torch)
 
@@ -3904,12 +4114,14 @@ def main() -> int:
             e["launches"] = (sum(ph["launches"][kname] for ph in main_phases)
                              if kname in MAIN_PATH else api_launches[kname])
             if kname == "embedding_bag":
-                e["launches"] += recsys["embedding_bag_launches"]
+                e["launches"] += (recsys["embedding_bag_launches"]
+                                  + roof["xdeepfm_serve"]["launches"])
                 e["recsys_path"] = recsys["bag_path"]
             if kname == "list_merge":
                 e["plan_merge"] = durability["plan_merge"]
             if kname == "similarity":
                 e["build"] = cf_family["build_kernel"]
+                e["launches"] += roof["build"]["launches"]
             kernels.append(e)
         total_s = time.perf_counter() - t_start
         log(f"  total {total_s:.1f} s")
@@ -3922,6 +4134,7 @@ def main() -> int:
         print(json.dumps({"lm": lm}))
         print(json.dumps({"moe_ep": moe_ep}))
         print(json.dumps({"gnn": gnn}))
+        print(json.dumps({"roofline": roof}))
         print(json.dumps({"kernels": kernels}))
         print(nvidia_smi_line())
         print(json.dumps({"ok": True, "device": {

@@ -67,6 +67,25 @@ def payload_bytes(n_base: int, c: int, branch: str) -> int:
                      "fallback": 4 * n_base}[branch]
 
 
+def _host_read(counts: torch.Tensor, best: torch.Tensor,
+               eq_new: torch.Tensor, s_max: int) -> list[int]:
+    """One copy to the host a user, which picks the row's branch: the
+    reduced counters (candidates, found, overflowed), the base twin, and
+    whether an earlier user of the burst is a twin and the first such.
+
+    On ``meta`` tensors (a dry run's trace, which reads no data) it returns
+    the fallback's values: no base twin, no burst twin, ``s_max``
+    candidates.  Each user is then priced at the costliest branch, the
+    rank-local mat-vec plus an all-gather of the N_base similarities (the
+    reference's ``lax.switch`` compiles all three)."""
+    if counts.is_meta:
+        return [s_max, 0, 0, -1, 0, 0]
+    return torch.cat([counts, best,
+                      torch.any(eq_new).reshape(1).to(torch.int32),
+                      torch.argmax(eq_new.to(torch.uint8)).reshape(1).to(
+                          torch.int32)]).tolist()
+
+
 def _group_shape(axes, mesh) -> tuple[object, int, int]:
     """(group, rank, world) of the shards: the group ``axes`` of ``mesh``
     name, or the default group (None) without a mesh."""
@@ -147,8 +166,10 @@ def onboard_batch_sharded(state: CFState, R_new: torch.Tensor, probe_idx,
         leq = (torch.all(rows == r0.to(rows.dtype)[None, :], dim=1)
                & mask_loc[lidx])
         found_loc = torch.any(leq)
-        best = torch.where(found_loc, offset + lidx[torch.argmax(
-            leq.to(torch.uint8))], -1).to(torch.int32).reshape(1)
+        # A gather, not an index by a 0-d tensor (which reads it on the
+        # host): the first verified candidate, lower index first.
+        first = lidx.gather(0, torch.argmax(leq.to(torch.uint8)).reshape(1))
+        best = torch.where(found_loc, offset + first, -1).to(torch.int32)
         counts = torch.stack([n_loc, found_loc, n_loc > s_loc]).to(
             torch.int32)
         dist.all_reduce(counts, group=group)
@@ -157,12 +178,8 @@ def onboard_batch_sharded(state: CFState, R_new: torch.Tensor, probe_idx,
         # Twins inside the burst (replicated, no state reads).
         live = karange < j
         eq_new = torch.all(R_new == r0[None, :], dim=1) & live
-        # One copy to the host a user: the reduced counters, the base twin
-        # and the first earlier twin inside the burst.
-        n_cand, n_found, n_ovf, twin_b, found_n, twin_n = torch.cat([
-            counts, best, torch.any(eq_new).reshape(1).to(torch.int32),
-            torch.argmax(eq_new.to(torch.uint8)).reshape(1).to(
-                torch.int32)]).tolist()
+        n_cand, n_found, n_ovf, twin_b, found_n, twin_n = _host_read(
+            counts, best, eq_new, s_max)
         found_b, found_n = n_found > 0, found_n > 0
         bsims = cosine_vs_all(Rn_new, new_norms, r0.float())
         buf[j, N_base:] = torch.where(live, bsims, SENTINEL)

@@ -131,19 +131,22 @@ class NamedSharding:
         return dict(zip(self.mesh.mesh_dim_names,
                         tuple(self.mesh.mesh.shape)))
 
-    def shard_shape(self, global_shape) -> tuple[int, ...]:
+    def shard_shape(self, global_shape, pad: bool = False
+                    ) -> tuple[int, ...]:
         """The shape of every rank's block; a dimension its axes do not
-        divide raises, as JAX's ``shard_shape`` does."""
+        divide raises, as JAX's ``shard_shape`` does, or with ``pad`` takes
+        the larger block, as the padded shard XLA gives an uneven sharding
+        (the dry run's counts)."""
         sizes = self._sizes()
         out = []
         for n, axes in zip(global_shape, self._parts(len(global_shape))):
             split = 1
             for a in axes:
                 split *= sizes[a]
-            if n % split:
+            if n % split and not pad:
                 raise ValueError(f"dimension {n} of {tuple(global_shape)} "
                                  f"does not split {split} ways ({self.spec})")
-            out.append(n // split)
+            out.append(-(-n // split))
         return tuple(out)
 
     @property

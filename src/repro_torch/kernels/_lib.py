@@ -7,6 +7,14 @@ under a file name keyed by a hash of the source and the flags, so a changed
 source rebuilds and an unchanged one is reused.  ``build_all`` starts one
 ``nvcc`` per source at once and waits for all of them.
 
+Each kernel's ``kernel.py`` also holds its cost formula (``cost``): the
+operations and the bytes one call needs, the formula behind the bound that
+``PERF.md`` §6 gives it.  While a counter is active (``COUNTER``, set by
+``launch.trace.Counter``) every binding reports its call's ``Cost`` to it,
+on the card and on ``meta`` alike; a binding given ``meta`` tensors checks
+them as it would CUDA ones and returns an empty output of the kernel's
+shape and dtype, launching nothing.
+
 Nothing here runs at import: the CPU tests import every module, and this
 machine need not have ``nvcc``.
 """
@@ -18,6 +26,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -25,6 +34,23 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
+
+
+class Cost(NamedTuple):
+    """What one kernel call must do: ``flops`` operations and ``bytes`` of
+    device memory (each input read once, each output written once).  The
+    operations run at the fp32 rate of the CUDA cores (``fp32``) or, for
+    bf16 operands, at the tensor cores' bf16 rate."""
+
+    flops: float
+    bytes: float
+    fp32: bool = True
+
+
+# The active cost counter, or None.  A binding reads it once a call and
+# computes its ``Cost`` only when it is set, so a call with no counter pays
+# one module attribute lookup.
+COUNTER = None
 
 
 def _nvcc() -> str:

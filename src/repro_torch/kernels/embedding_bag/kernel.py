@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._lib import EMBEDDING_BAG
+from repro_torch.kernels import _lib
+from repro_torch.kernels._lib import EMBEDDING_BAG, Cost
 
 THREADS = 128
 MAX_BLOCKS = 2**31 - 1       # gridDim.x
@@ -23,6 +24,21 @@ COLUMN, PAIR = "column", "pair"
 LAYOUT = PAIR
 
 
+def cost(V: int, n_bags: int, hot: int, dim: int, *, weighted: bool,
+         masked: bool, rows: int | None = None) -> Cost:
+    """An add a slot and column, and a multiply for each of the weights and
+    the mask; ``rows`` distinct table rows read once (without it, the most
+    the shapes allow, min(V, n_bags·hot): the distinct count is data, and a
+    trace does not read data), the int32 ids, f32 weights and bool mask
+    read and the (n_bags, dim) f32 output written once."""
+    if rows is None:
+        rows = min(V, n_bags * hot)
+    slots = n_bags * hot
+    return Cost(flops=(1.0 + weighted + masked) * slots * dim,
+                bytes=(4.0 * rows * dim + (4.0 + 4 * weighted + masked) * slots
+                       + 4.0 * n_bags * dim))
+
+
 def embedding_bag_cuda(table: torch.Tensor, idx: torch.Tensor,
                        w: torch.Tensor | None = None,
                        mask: torch.Tensor | None = None, *,
@@ -31,7 +47,8 @@ def embedding_bag_cuda(table: torch.Tensor, idx: torch.Tensor,
     the kernel; w (n_bags, hot) f32 or None (weights of 1); mask (n_bags,
     hot) bool or None, multiplied into the weights.  ``layout`` PAIR falls
     back to COLUMN where dim is odd or the table is not 8-byte aligned.
-    Returns (n_bags, dim) f32."""
+    Returns (n_bags, dim) f32 (on ``meta`` tensors an empty one, and
+    nothing launches)."""
     V, dim = table.shape
     n_bags, hot = idx.shape
     for name, t, dt in (("w", w, torch.float32), ("mask", mask, torch.bool)):
@@ -53,12 +70,18 @@ def embedding_bag_cuda(table: torch.Tensor, idx: torch.Tensor,
     if -(-n_bags * (dim // 2 if pairs else dim) // THREADS) > MAX_BLOCKS:
         raise ValueError(f"{n_bags} bags x {dim} columns exceed one grid")
     for t in (table, idx, w, mask):
-        if t is not None and not (t.is_cuda and t.is_contiguous()):
-            raise ValueError("embedding_bag_cuda needs contiguous CUDA "
-                             "tensors")
+        if t is not None and (t.device != table.device
+                              or not (t.is_cuda or t.is_meta)
+                              or not t.is_contiguous()):
+            raise ValueError("embedding_bag_cuda needs contiguous CUDA (or "
+                             "meta) tensors on one device")
     out = torch.empty((n_bags, dim), dtype=torch.float32,
                       device=table.device)
-    if n_bags and dim:
+    if _lib.COUNTER is not None:
+        _lib.COUNTER.kernel(EMBEDDING_BAG.name, cost(
+            V, n_bags, hot, dim, weighted=w is not None,
+            masked=mask is not None))
+    if n_bags and dim and not table.is_meta:
         if V == 0 and hot:
             raise ValueError("embedding_bag: empty table")
         vec = int(hot % 4 == 0 and idx.data_ptr() % 16 == 0

@@ -1,10 +1,11 @@
 """Public wrapper of the EmbeddingBag kernel.
 
 ``embedding_bag`` launches ``csrc/embedding_bag.cu`` on CUDA tensors and
-runs the plain version (``ref.py``) on CPU tensors, with the JAX wrapper's
-semantics: ``weights`` default to ones, ``mask`` multiplies them, ids are
-cast to int32 and clipped to ``[0, V - 1]``, and the output has the
-table's dtype.  On the card the kernel clips the ids and multiplies the
+runs the plain version (``ref.py``) on CPU tensors (on ``meta`` tensors
+the kernel's empty output, its cost reported to the active counter), with
+the JAX wrapper's semantics: ``weights`` default to ones, ``mask``
+multiplies them, ids are cast to int32 and clipped to ``[0, V - 1]``, and
+the output has the table's dtype.  On the card the kernel clips the ids and multiplies the
 mask in itself, so float32 weights (or none) with a bool mask (or none)
 and int32 ids make one launch; other dtypes go through the same steps on
 the host first, so their rounding is unchanged.  The JAX wrapper's
@@ -36,7 +37,7 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor,
     """Sum-combiner EmbeddingBag: (V, dim) table, (n_bags, hot) indices,
     optional per-sample weights and validity mask -> (n_bags, dim)."""
     idx = idx.to(torch.int32)            # cast first: int64 ids wrap as jnp
-    if table.is_cuda:
+    if table.is_cuda or table.is_meta:
         if table.dtype != torch.float32:
             raise NotImplementedError(f"embedding_bag: the CUDA kernel takes "
                                       f"a float32 table, not {table.dtype}")

@@ -2,7 +2,8 @@
 
 ``knn_scores`` launches ``csrc/knn_score.cu`` on CUDA tensors and runs the
 serial plain version (``ref.py``) on CPU tensors; both add the k terms in
-the same order and agree bit for bit.  ``knn_recommend_topn`` adds the
+the same order and agree bit for bit (on ``meta`` tensors the kernel's
+empty output, its cost reported to the active counter).  ``knn_recommend_topn`` adds the
 top-n cut, outside the kernel, with ``lax.top_k``'s lower-index-first tie
 rule (unrated items all score 0, so ties are the rule, not the exception).
 """
@@ -33,7 +34,7 @@ def knn_scores(ratings: torch.Tensor, w: torch.Tensor, nbrs: torch.Tensor,
     w = w.float()
     nbrs = torch.clamp(nbrs, 0, N - 1).to(torch.int32)
     users = torch.clamp(users, 0, N - 1).to(torch.int32)
-    if ratings.is_cuda:
+    if ratings.is_cuda or ratings.is_meta:
         return knn_scores_cuda(ratings.contiguous(), w.contiguous(),
                                nbrs.contiguous(), users.contiguous())
     if ratings.device.type == "cpu":

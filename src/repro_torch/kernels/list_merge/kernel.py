@@ -11,9 +11,16 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._lib import LIST_MERGE
+from repro_torch.kernels import _lib
+from repro_torch.kernels._lib import LIST_MERGE, Cost
 
 MAX_INSERTS = 12288          # the row's inserts sit in 48 KB of smem
+
+
+def cost(R: int, L: int, k: int) -> Cost:
+    """No arithmetic; every list value and id read once and written once
+    (16 bytes an entry) and the sorted inserts read once (8 a slot)."""
+    return Cost(flops=0.0, bytes=16.0 * R * L + 8.0 * R * k)
 
 
 def merge_sorted_cuda(vals: torch.Tensor, idx: torch.Tensor,
@@ -21,7 +28,8 @@ def merge_sorted_cuda(vals: torch.Tensor, idx: torch.Tensor,
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """vals (R, L) f32 ascending rows, idx (R, L) int32; sv (R, k) f32
     gated inserts sorted ascending, si (R, k) int32.  Returns merged
-    (R, L) (values, ids)."""
+    (R, L) (values, ids) (on ``meta`` tensors empty ones, and nothing
+    launches)."""
     R, L = vals.shape
     k = sv.shape[1]
     if idx.shape != (R, L) or sv.shape != (R, k) or si.shape != (R, k):
@@ -35,12 +43,15 @@ def merge_sorted_cuda(vals: torch.Tensor, idx: torch.Tensor,
     if k > MAX_INSERTS:
         raise ValueError(f"{k} inserts per row exceed {MAX_INSERTS}")
     for t in (vals, idx, sv, si):
-        if not t.is_cuda or not t.is_contiguous():
-            raise ValueError("merge_sorted_cuda needs contiguous CUDA "
-                             "tensors")
+        if t.device != vals.device or not (t.is_cuda or t.is_meta) \
+                or not t.is_contiguous():
+            raise ValueError("merge_sorted_cuda needs contiguous CUDA (or "
+                             "meta) tensors on one device")
     out_v = torch.empty_like(vals)
     out_i = torch.empty_like(idx)
-    if R and L:
+    if _lib.COUNTER is not None:
+        _lib.COUNTER.kernel(LIST_MERGE.name, cost(R, L, k))
+    if R and L and not vals.is_meta:
         LIST_MERGE.launch("merge_insert_f32", vals, idx, sv, si, out_v,
                           out_i, R, L, k)
     return out_v, out_i

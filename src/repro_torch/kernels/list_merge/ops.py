@@ -3,7 +3,9 @@
 Pre-conditions the inserts outside the kernel — masked lanes gated to
 ``NEG_INF`` and each row's inserts stable-sorted ascending, so ties keep
 burst order — then launches ``csrc/list_merge.cu`` on CUDA tensors or runs
-the same rank-and-scatter in plain PyTorch (``ref.py``) on CPU tensors.
+the same rank-and-scatter in plain PyTorch (``ref.py``) on CPU tensors
+(on ``meta`` tensors the kernel's empty outputs, its cost reported to the
+active counter).
 The merge does no arithmetic, so the two agree bit for bit.
 """
 from __future__ import annotations
@@ -50,7 +52,7 @@ def merge_insert(vals: torch.Tensor, idx: torch.Tensor,
     else:
         ins_mask = ins_mask.expand(R, k)
     sv, si = _sort_inserts(ins_vals, ins_idx, ins_mask)
-    if vals.is_cuda:
+    if vals.is_cuda or vals.is_meta:
         return merge_sorted_cuda(vals, idx, sv.contiguous(), si.contiguous())
     if vals.device.type == "cpu":
         return merge_sorted_ref(vals, idx, sv, si)

@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._lib import SIMILARITY
+from repro_torch.kernels import _lib
+from repro_torch.kernels._lib import SIMILARITY, Cost
 
 _DTYPE = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -28,6 +29,15 @@ def block_rows(nq: int) -> int:
 def entry_point(dtype: torch.dtype, nq: int) -> str:
     """The C entry point for ``dtype`` inputs and ``nq`` rows of Q."""
     return f"cosine_similarity_{_DTYPE[dtype]}_bm{block_rows(nq)}"
+
+
+def cost(nq: int, n: int, m: int, dtype: torch.dtype) -> Cost:
+    """2·nq·n·m operations (fp32 on the CUDA cores, bf16 on the tensor
+    cores); Q and R read once in their dtype, both norms read and the
+    (nq, n) f32 block written once."""
+    return Cost(flops=2.0 * nq * n * m,
+                bytes=dtype.itemsize * (nq * m + n * m) + 4.0 * (nq * n + nq + n),
+                fp32=dtype == torch.float32)
 
 
 def launch_similarity(Q: torch.Tensor, R: torch.Tensor, q_norms: torch.Tensor,
@@ -44,7 +54,8 @@ def launch_similarity(Q: torch.Tensor, R: torch.Tensor, q_norms: torch.Tensor,
 def similarity_cuda(Q: torch.Tensor, R: torch.Tensor, q_norms: torch.Tensor,
                     r_norms: torch.Tensor) -> torch.Tensor:
     """Q (nq, m) and R (n, m) of one dtype (f32 or bf16); q_norms (nq,) and
-    r_norms (n,) f32, already clamped to >= EPS.  Returns (nq, n) f32."""
+    r_norms (n,) f32, already clamped to >= EPS.  Returns (nq, n) f32 (on
+    ``meta`` tensors an empty one, and nothing launches)."""
     nq, m = Q.shape
     n, m2 = R.shape
     if m != m2 or q_norms.shape != (nq,) or r_norms.shape != (n,):
@@ -58,8 +69,13 @@ def similarity_cuda(Q: torch.Tensor, R: torch.Tensor, q_norms: torch.Tensor,
     if q_norms.dtype != torch.float32 or r_norms.dtype != torch.float32:
         raise TypeError("norms must be float32")
     for t in (Q, R, q_norms, r_norms):
-        if not t.is_cuda or not t.is_contiguous():
-            raise ValueError("similarity_cuda needs contiguous CUDA tensors")
+        if t.device != Q.device or not (t.is_cuda or t.is_meta) \
+                or not t.is_contiguous():
+            raise ValueError("similarity_cuda needs contiguous CUDA (or "
+                             "meta) tensors on one device")
     out = torch.empty((nq, n), dtype=torch.float32, device=Q.device)
-    launch_similarity(Q, R, q_norms, r_norms, out)
+    if _lib.COUNTER is not None:
+        _lib.COUNTER.kernel(SIMILARITY.name, cost(nq, n, m, Q.dtype))
+    if not Q.is_meta:
+        launch_similarity(Q, R, q_norms, r_norms, out)
     return out

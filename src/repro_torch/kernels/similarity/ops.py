@@ -1,7 +1,8 @@
 """Public wrapper of the similarity kernel.
 
 On CUDA tensors it launches ``csrc/similarity.cu``; on CPU tensors it runs
-the plain version in ``ref.py``.  The kernel masks ragged edges itself, so
+the plain version in ``ref.py``; on ``meta`` tensors it returns the
+kernel's empty output and reports its cost to the active counter.  The kernel masks ragged edges itself, so
 nothing is padded.
 """
 from __future__ import annotations
@@ -23,7 +24,7 @@ def cosine_similarity(Q: torch.Tensor, R: torch.Tensor,
         r_norms = torch.sqrt(torch.sum(torch.square(R.float()), dim=1))
     qn = torch.clamp_min(q_norms.float(), EPS)
     rn = torch.clamp_min(r_norms.float(), EPS)
-    if Q.is_cuda:
+    if Q.is_cuda or Q.is_meta:
         return similarity_cuda(Q.contiguous(), R.contiguous(),
                                qn.contiguous(), rn.contiguous())
     if Q.device.type == "cpu":

@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._lib import TWIN_PROBE
+from repro_torch.kernels import _lib
+from repro_torch.kernels._lib import TWIN_PROBE, Cost
 
 # One ticket per (device, stream): a 64-bit word that each launch takes
 # back to 0, so calls on one stream reuse it in turn and calls on two
@@ -29,11 +30,19 @@ def _ticket(stream: torch.cuda.Stream) -> torch.Tensor:
     return t
 
 
+def cost(c: int, N: int) -> Cost:
+    """Three operations an entry (difference, absolute value, compare);
+    the (c, N) rows and c probe sims read once, the N-byte mask and the
+    4-byte count written once."""
+    return Cost(flops=3.0 * c * N, bytes=4.0 * c * N + 4.0 * c + N + 4)
+
+
 def twin_probe_cuda(rows: torch.Tensor, sims0: torch.Tensor, tol: float
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """rows (c, N) f32; sims0 (c,) f32; ``tol`` a Python float, passed to
     the kernel as C ``float``.  Returns (mask (N,) bool, count 0-d int32),
-    views of one buffer."""
+    views of one buffer (on ``meta`` tensors empty ones, and nothing
+    launches)."""
     c, N = rows.shape
     if sims0.shape != (c,):
         raise ValueError(f"shape mismatch: rows {tuple(rows.shape)}, sims0 "
@@ -41,8 +50,12 @@ def twin_probe_cuda(rows: torch.Tensor, sims0: torch.Tensor, tol: float
     if rows.dtype != torch.float32 or sims0.dtype != torch.float32:
         raise TypeError("rows and sims0 must be float32")
     for t in (rows, sims0):
-        if not t.is_cuda or not t.is_contiguous():
-            raise ValueError("twin_probe_cuda needs contiguous CUDA tensors")
+        if t.device != rows.device or not (t.is_cuda or t.is_meta) \
+                or not t.is_contiguous():
+            raise ValueError("twin_probe_cuda needs contiguous CUDA (or "
+                             "meta) tensors on one device")
+    if _lib.COUNTER is not None:
+        _lib.COUNTER.kernel(TWIN_PROBE.name, cost(c, N))
     if N == 0:
         return (torch.empty((0,), dtype=torch.bool, device=rows.device),
                 torch.zeros((), dtype=torch.int32, device=rows.device))
@@ -51,6 +64,8 @@ def twin_probe_cuda(rows: torch.Tensor, sims0: torch.Tensor, tol: float
     buf = torch.empty(mask_bytes + 4, dtype=torch.uint8, device=rows.device)
     mask = buf[:N].view(torch.bool)
     count = buf[mask_bytes:].view(torch.int32)[0]
+    if rows.is_meta:
+        return mask, count
     vec = int(N % 4 == 0 and rows.data_ptr() % 16 == 0)
     stream = torch.cuda.current_stream(rows.device)
     TWIN_PROBE.launch("twin_probe_f32", rows, sims0, float(tol), mask,

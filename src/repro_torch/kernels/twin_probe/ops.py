@@ -1,7 +1,9 @@
 """Public wrapper of the twin-probe kernel.
 
 ``twin_probe`` launches ``csrc/twin_probe.cu`` on CUDA tensors and runs the
-plain version (``ref.py``) on CPU tensors; both compare in the promoted
+plain version (``ref.py``) on CPU tensors (on ``meta`` tensors the
+kernel's empty outputs, its cost reported to the active counter); both
+compare in the promoted
 dtype of the two inputs, as jnp does.  The JAX wrapper's TPU tiling and
 interpret arguments (``bn``, ``interpret``) are dropped: the kernel masks
 the ragged edge itself, so nothing is padded.
@@ -21,7 +23,7 @@ def twin_probe(probe_rows: torch.Tensor, sims0: torch.Tensor, *,
     n/125 overflow check's input)."""
     dt = torch.promote_types(probe_rows.dtype, sims0.dtype)
     rows, s0 = probe_rows.to(dt), sims0.to(dt)
-    if rows.is_cuda:
+    if rows.is_cuda or rows.is_meta:
         if dt != torch.float32:
             raise NotImplementedError(f"twin_probe: the CUDA kernel takes "
                                       f"float32, not {dt}")

@@ -11,15 +11,24 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._lib import VERIFY_ROWS
+from repro_torch.kernels import _lib
+from repro_torch.kernels._lib import VERIFY_ROWS, Cost
 
 ENTRY = {torch.float32: "verify_rows_f32", torch.int8: "verify_rows_i8"}
+
+
+def cost(s: int, m: int, dtype: torch.dtype) -> Cost:
+    """One compare an entry; the (s, m) block and r0 read once in their
+    dtype, the valid flags read and the (s,) flags written once."""
+    return Cost(flops=float(s * m),
+                bytes=dtype.itemsize * (s * m + m) + 2.0 * s)
 
 
 def verify_rows_cuda(C: torch.Tensor, r0: torch.Tensor, valid: torch.Tensor
                      ) -> torch.Tensor:
     """C (s, m) and r0 (m,) of one dtype in ``ENTRY``; valid (s,) bool.
-    Returns (s,) bool."""
+    Returns (s,) bool (on ``meta`` tensors an empty one, and nothing
+    launches)."""
     s, m = C.shape
     if r0.shape != (m,) or valid.shape != (s,):
         raise ValueError(f"shape mismatch: C {tuple(C.shape)}, r0 "
@@ -30,10 +39,13 @@ def verify_rows_cuda(C: torch.Tensor, r0: torch.Tensor, valid: torch.Tensor
     if valid.dtype != torch.bool:
         raise TypeError("valid must be bool")
     for t in (C, r0, valid):
-        if not t.is_cuda or not t.is_contiguous():
-            raise ValueError("verify_rows_cuda needs contiguous CUDA "
-                             "tensors")
+        if t.device != C.device or not (t.is_cuda or t.is_meta) \
+                or not t.is_contiguous():
+            raise ValueError("verify_rows_cuda needs contiguous CUDA (or "
+                             "meta) tensors on one device")
     out = torch.empty((s,), dtype=torch.bool, device=C.device)
-    if s:
+    if _lib.COUNTER is not None:
+        _lib.COUNTER.kernel(VERIFY_ROWS.name, cost(s, m, C.dtype))
+    if s and not C.is_meta:
         VERIFY_ROWS.launch(ENTRY[C.dtype], C, r0, valid, out, s, m)
     return out

@@ -2,7 +2,8 @@
 that share its module in the JAX package.
 
 ``verify_rows`` launches ``csrc/verify_rows.cu`` on CUDA tensors and runs
-the plain version (``ref.py``) on CPU tensors.  The JAX wrapper's TPU
+the plain version (``ref.py``) on CPU tensors (on ``meta`` tensors the
+kernel's empty output, its cost reported to the active counter).  The JAX wrapper's TPU
 tiling and interpret arguments (``bs``, ``bk``, ``interpret``) are dropped:
 the kernel strides over any row width, so nothing is padded.
 ``rows_sorted_finite`` and ``arena_healthy`` are plain PyTorch, as they are
@@ -26,7 +27,7 @@ def verify_rows(C: torch.Tensor, r0: torch.Tensor, valid: torch.Tensor
     promotion and raises ``NotImplementedError`` for any other dtype."""
     dt = torch.promote_types(C.dtype, r0.dtype)
     C, r0, valid = C.to(dt), r0.to(dt), valid.to(torch.bool)
-    if C.is_cuda:
+    if C.is_cuda or C.is_meta:
         if dt not in ENTRY:
             raise NotImplementedError(f"verify_rows: the CUDA kernel takes "
                                       f"float32 or int8, not {dt}")

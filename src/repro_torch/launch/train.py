@@ -1,7 +1,8 @@
 """Training launcher of the port (``repro.launch.train`` on PyTorch).
 
 Selects an architecture config, builds its train cell
-(``launch.steps.build_cell``) on a (1, 1) mesh (``launch.mesh.
+(``launch.steps.build_cell``) and binds it to a program
+(``launch.steps.jit_cell``), as the reference does, on a (1, 1) mesh (``launch.mesh.
 one_rank_mesh``: a one-rank process group it opens unless one is open),
 materialises params and optimizer state as zeros on the device, as the
 reference launcher does, and runs the restartable loop with checkpointing
@@ -29,7 +30,7 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.core.types import require_device
 from repro_torch.launch.mesh import one_rank_mesh
-from repro_torch.launch.steps import build_cell
+from repro_torch.launch.steps import build_cell, jit_cell
 from repro_torch.training import (StragglerMonitor, TrainLoopConfig,
                                   run_loop)
 from repro_torch.tree import tree_map
@@ -96,6 +97,7 @@ def main(argv: list[str] | None = None):
                  f"{shape.kind} shape, not a train shape")
     with one_rank_mesh(device.type) as mesh:
         cell = build_cell(spec, shape, mesh)
+        step = jit_cell(cell, mesh)
         pstructs, ostructs, _ = cell.args
         params = _zeros(pstructs, device)
         opt_state = _zeros(ostructs, device)
@@ -104,7 +106,7 @@ def main(argv: list[str] | None = None):
         monitor = StragglerMonitor()
 
         def wrapped(params, opt_state, ef, batch):
-            params, opt_state, loss = cell.fn(params, opt_state, batch)
+            params, opt_state, loss = step(params, opt_state, batch)
             return params, opt_state, ef, {"loss": loss}
 
         loop_cfg = TrainLoopConfig(n_steps=args.steps, ckpt_dir=args.ckpt,

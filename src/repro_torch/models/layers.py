@@ -135,7 +135,8 @@ def fan_in_init(gen: torch.Generator | None, shape: tuple[int, ...],
 class _MatmulF32(torch.autograd.Function):
     """``a @ b`` of low-precision operands with a float32 result: each
     product exact, the sums in float32.  On the card one cuBLAS call with a
-    float32 output (``out_dtype``); on the CPU a product of float32 copies.
+    float32 output (``out_dtype``), and on ``meta`` the same call (a trace
+    counts the card's route); on the CPU a product of float32 copies.
     The backward is JAX's transpose rule for such a product: the float32
     cotangent times the other operand in float32, cast to the operand's
     dtype."""
@@ -143,7 +144,7 @@ class _MatmulF32(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b):
         ctx.save_for_backward(a, b)
-        if a.is_cuda:
+        if a.is_cuda or a.is_meta:
             op = torch.mm if a.dim() == 2 else torch.bmm
             return op(a, b, out_dtype=torch.float32)
         return torch.matmul(a.float(), b.float())

@@ -40,8 +40,9 @@ The collectives are small autograd functions here, not
 reduce-scatter) that module's ``all_gather`` backward scatters with group
 ranks where ``dist.scatter`` wants global ones, and fails on any subgroup
 other than ranks 0..n-1 (torch 2.13), such as a data axis.  The gather's
-backward here is a reduce-scatter on NCCL and, elsewhere, an all-reduce of
-the whole cotangent of which each rank keeps its block.
+backward here is a reduce-scatter (NCCL, and the ``"fake"`` backend of a
+dry run) and, on gloo, an all-reduce of the whole cotangent of which each
+rank keeps its block.
 """
 from __future__ import annotations
 
@@ -184,7 +185,7 @@ class _AllGatherLast(torch.autograd.Function):
     def backward(ctx, g):
         n = dist.get_world_size(ctx.group)
         chunks = [c.contiguous() for c in g.chunk(n, dim=-1)]
-        if dist.get_backend(ctx.group) == dist.Backend.NCCL:
+        if dist.get_backend(ctx.group) != dist.Backend.GLOO:
             out = torch.empty_like(chunks[0])
             dist.reduce_scatter(out, chunks, group=ctx.group)
             return out, None

@@ -15,7 +15,10 @@ Design points:
   * decode is a layer loop with a ring-buffer cache (size W) for local
     layers and a full cache for global layers; it writes the new token's
     keys and values into the cache's tensors in place (the reference's
-    decode cell donates the cache to the step);
+    decode cell donates the cache to the step).  It reads the position on
+    the host (``int(pos)``), so a dry run (``launch.dryrun``), which traces
+    on ``meta`` tensors that hold no data, passes it as a host int: the last
+    position of the cell's cache;
   * ``LMShardingHooks`` are the reference's sharding constraints.  In one
     process ``acts``, ``logits``, ``moe_tokens`` and ``moe_experts`` have
     no effect; ``moe_ep`` (a ``models.moe_ep.MoEEPInfo``) routes the MoE

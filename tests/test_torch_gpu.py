@@ -1466,3 +1466,67 @@ def test_olmoe_prefill_cell_through_moe_ep_on_card(nccl1, monkeypatch):
             assert torch.equal(cache[k].cpu(), wcache[k])
         else:
             assert _lm_close(cache[k], wcache[k], "float32"), k
+
+
+# ---------------------------------------------------------------------------
+# The kernels under the cost counter (launch.trace.Counter): on the card each
+# reports the formula it reports on ``meta``, still launches once, and gives
+# the bits it gives without a counter
+# ---------------------------------------------------------------------------
+
+def _counted_case(name, rng):
+    """(wrapper, its CPU arguments) at small shapes."""
+    def f32(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32)
+
+    if name == "similarity":
+        return cosine_similarity, (f32(37, 300), f32(451, 300))
+    if name == "list_merge":
+        vals = torch.sort(f32(16, 64), dim=1).values
+        idx = torch.as_tensor(rng.integers(0, 64, (16, 64)), dtype=torch.int32)
+        mask = torch.as_tensor(rng.random((16, 3)) < 0.8)
+        return merge_insert, (vals, idx, f32(16, 3),
+                              torch.arange(3, dtype=torch.int32), mask)
+    if name == "knn_score":
+        return knn_scores, (f32(120, 40), f32(33, 20).clamp_min(0),
+                            torch.as_tensor(rng.integers(0, 120, (33, 20))),
+                            torch.as_tensor(rng.integers(0, 120, (33,))))
+    if name == "twin_probe":
+        rows = f32(8, 700)
+        return twin_probe, (rows, rows[:, 9].clone())
+    if name == "verify_rows":
+        C = f32(37, 211)
+        return verify_rows, (C, C[3].clone(),
+                             torch.as_tensor(rng.random(37) < 0.9))
+    return embedding_bag, (f32(50, 8), torch.as_tensor(
+        rng.integers(0, 50, (4, 2)), dtype=torch.int32), None,
+        torch.as_tensor(rng.random((4, 2)) < 0.6))
+
+
+@pytest.mark.parametrize("name", ["similarity", "list_merge", "knn_score",
+                                  "twin_probe", "verify_rows",
+                                  "embedding_bag"])
+def test_kernel_counts_on_card_what_it_counts_on_meta(cuda, name):
+    from repro_torch.launch.trace import Counter
+
+    def on(device, args):
+        return [None if a is None else a.to(device) for a in args]
+
+    fn, args = _counted_case(name, np.random.default_rng(7))
+    card_args = on(cuda, args)
+    plain = fn(*card_args)                 # no counter (and warm state)
+    torch.cuda.synchronize()
+    with Counter() as card:
+        out = _launched(name, fn, *card_args)
+    meta_args = on("meta", args)
+    with Counter() as meta:
+        fn(*meta_args)
+    assert card.kernels == meta.kernels
+    assert card.kernels[name]["calls"] == 1
+    assert (card.flops, card.flops_f32, card.bytes) == (
+        meta.flops, meta.flops_f32, meta.bytes)
+    outs = out if isinstance(out, tuple) else (out,)
+    plains = plain if isinstance(plain, tuple) else (plain,)
+    for o, p in zip(outs, plains):
+        assert _same_bits(o, p) if o.is_floating_point() else \
+            torch.equal(o, p)

@@ -7,7 +7,8 @@
     the card) raise where there is no card, instead of sliding onto the
     CPU;
   * each kernel wrapper runs its plain version on CPU tensors, launches
-    nothing and counts nothing, and raises on a device it does not serve;
+    nothing and counts nothing, and raises on a device it does not serve
+    (``meta`` it serves: the kernel's empty output, for a dry run);
   * ``repro_torch.kernels`` names every function of ``repro.kernels``.
 """
 from __future__ import annotations
@@ -139,9 +140,16 @@ def test_wrapper_runs_plain_version_on_cpu(name):
 
 @pytest.mark.parametrize("name", KERNEL_NAMES)
 def test_wrapper_raises_on_unserved_device(name):
+    """``meta`` is served since the dry run (the kernel's empty output and
+    its cost); a device the port has no kernel for, ``xpu`` (fake tensors
+    here), raises."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
     fn, args = _cases()[name]
-    with pytest.raises(ValueError, match="device"):
-        fn(*(a.to("meta") for a in args))
+    with FakeTensorMode():
+        xpu = [torch.empty(a.shape, dtype=a.dtype, device="xpu")
+               for a in args]
+        with pytest.raises(ValueError, match="device"):
+            fn(*xpu)
 
 
 def test_kernel_bindings_refuse_cpu_tensors():

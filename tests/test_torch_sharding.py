@@ -26,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import itertools
+import types
 
 import pytest
 import torch
@@ -246,3 +247,17 @@ def test_mesh_axes_properties_match_the_reference():
         assert (tax.all, tax.mp_size, tax.dp_size) == (
             jax_.all, jax_.mp_size, jax_.dp_size)
     assert dataclasses.fields(tshd.MeshAxes)[0].name == "dp"
+
+
+def test_shard_shape_raises_or_pads_an_uneven_split():
+    """An uneven split raises, as JAX's ``shard_shape``; with ``pad`` it
+    takes the larger block (the dry run's per-rank shapes)."""
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 mesh=torch.empty(16, 16))
+    sh = tshd.NamedSharding(mesh, tshd.P("data", "model"))
+    assert sh.shard_shape((128, 32)) == sh.shard_shape((128, 32), pad=True) \
+        == (8, 2)
+    with pytest.raises(ValueError, match="does not split 16 ways"):
+        sh.shard_shape((128, 1))
+    assert sh.shard_shape((128, 1), pad=True) == (8, 1)
+    assert sh.shard_shape((130, 17), pad=True) == (9, 2)
