@@ -316,11 +316,20 @@ def call_ms(fn, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+def padded_rows(x):
+    """The whole (n, ld) buffer under a ``kernel.row_buffer`` view ``x``:
+    its rows with the zero pad columns, at a depth (a multiple of 8 items)
+    that cuBLAS's aligned kernels take; the same row products."""
+    return x.as_strided((x.shape[0], x.stride(0)), (x.stride(0), 1))
+
+
+def bound(bytes_moved: float, flops: float,
+          flops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
     """The least time the card could take: bytes over the memory rate or
-    operations over the fp32 rate, whichever is larger."""
+    operations over their type's peak rate (fp32 on the CUDA cores unless
+    ``flops_per_s`` says otherwise), whichever is larger."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -403,14 +412,20 @@ def check_list_merge(torch, dev) -> dict:
 
 
 def check_similarity(torch, dev, arena, R_host) -> dict:
-    """Both tile variants on the Douban-width arena: nq = 64 (the 64-row
-    tile) and nq = 32 (the 32-row tile, the server's burst width), each
-    against its plain version in f32 and bf16 and timed beside
-    ``torch.matmul`` (kernel, matmul, matmul, kernel); then the burst's 32
-    fresh profiles and 64 such rows (integer ratings) bit for bit."""
+    """Both f32 tile variants on the Douban-width arena: nq = 64 (the
+    64-row tile) and nq = 32 (the 32-row tile, the server's burst width),
+    each against its plain version and timed beside ``torch.matmul``
+    (kernel, matmul, matmul, kernel); the bf16 route (one entry point, the
+    tensor cores) at both nq on an aligned-stride bf16 copy of the arena,
+    against its plain version and timed beside ``torch.mm(...,
+    out_dtype=torch.float32)`` on the whole zero-padded buffers likewise
+    (and once on the odd-depth views the kernel reads, which cuBLAS takes
+    more slowly); then the burst's 32 fresh profiles and 64 such rows
+    (integer ratings) bit for bit in both dtypes."""
     import numpy as np
     from repro_torch.data.synthetic import plant_twins
     from repro_torch.kernels.similarity.kernel import (entry_point,
+                                                       row_buffer,
                                                        similarity_cuda)
     from repro_torch.kernels.similarity.ops import cosine_similarity
     from repro_torch.kernels.similarity.ref import EPS, similarity_ref
@@ -425,7 +440,8 @@ def check_similarity(torch, dev, arena, R_host) -> dict:
 
     n, m = arena.shape
     rn = torch.sqrt(torch.sum(torch.square(arena), dim=1)).clamp_min(EPS)
-    Rb = arena.bfloat16()
+    # The bf16 route reads rows by TMA: a row stride of roundup(m, 8) items.
+    Rb = row_buffer(n, m, torch.bfloat16, dev).copy_(arena)
     variants = {}
     for nq in SIM_NQS:
         Q = torch.randn((nq, m), device=dev, generator=g)
@@ -434,11 +450,11 @@ def check_similarity(torch, dev, arena, R_host) -> dict:
         err = float((out - similarity_ref(Q, arena, qn, rn)).abs().max())
         check(err <= 1e-5, f"similarity f32 ({nq} x {n} x {m}, "
               f"{entry_point(Q.dtype, nq)}) within 1e-5 (max err {err:.3g})")
-        Qb = Q.bfloat16()
+        Qb = row_buffer(nq, m, torch.bfloat16, dev).copy_(Q)
         err_b = float((similarity_cuda(Qb, Rb, qn, rn)
                        - similarity_ref(Qb, Rb, qn, rn)).abs().max())
-        check(err_b <= 2e-2, f"similarity bf16 ({nq} x {n} x {m}, "
-              f"{entry_point(Qb.dtype, nq)}) within 2e-2 (max err "
+        check(err_b <= 1e-5, f"similarity bf16 ({nq} x {n} x {m}, "
+              f"{entry_point(Qb.dtype, nq)}) within 1e-5 (max err "
               f"{err_b:.3g})")
         del out
         kernel = lambda: similarity_cuda(Q, arena, qn, rn)   # noqa: E731
@@ -446,23 +462,48 @@ def check_similarity(torch, dev, arena, R_host) -> dict:
         turns = [cuda_ms(kernel, 5), cuda_ms(matmul, 5), cuda_ms(matmul, 5),
                  cuda_ms(kernel, 5)]
         ms, lib_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-        ms_b = cuda_ms(lambda: similarity_cuda(Qb, Rb, qn, rn), reps=3)
+        kernel_b = lambda: similarity_cuda(Qb, Rb, qn, rn)   # noqa: E731
+        Qp, Rp = padded_rows(Qb), padded_rows(Rb)
+        mm_b = lambda: torch.mm(Qp, Rp.T,                    # noqa: E731
+                                out_dtype=torch.float32)
+        err_lib = float((kernel_b() - mm_b() / (qn[:, None] * rn))
+                        .abs().max())
+        turns_b = [cuda_ms(kernel_b, 5), cuda_ms(mm_b, 5), cuda_ms(mm_b, 5),
+                   cuda_ms(kernel_b, 5)]
+        ms_b = (turns_b[0] + turns_b[3]) / 2
+        lib_b = (turns_b[1] + turns_b[2]) / 2
+        lib_odd = cuda_ms(lambda: torch.mm(Qb, Rb.T,
+                                           out_dtype=torch.float32), 5)
         plain_ms = cuda_ms(lambda: similarity_ref(Q, arena, qn, rn), reps=3)
         flops = 2.0 * nq * n * m
         moved = 4.0 * (nq * m + n * m + nq * n + nq + n)
         b_ms, b_by = bound(moved, flops)
+        moved_b = 2.0 * (nq * m + n * m) + 4.0 * (nq * n + nq + n)
+        bb_ms, bb_by = bound(moved_b, flops, BF16_FLOPS_PER_S)
         log(f"  similarity f32 ({nq}x{n}x{m}, {entry_point(Q.dtype, nq)}): "
             f"kernel {ms:.3f} ms ({turns[0]:.3f}, {turns[3]:.3f}; "
             f"{flops / ms / 1e9:.1f} TFLOP/s, {moved / ms / 1e6:.0f} GB/s, "
             f"{b_ms / ms:.0%} of the bound), torch.matmul {lib_ms:.3f} ms "
             f"({turns[1]:.3f}, {turns[2]:.3f}), plain {plain_ms:.3f} ms, "
-            f"bound {b_ms:.3f} ms ({b_by}); bf16 kernel {ms_b:.3f} ms")
+            f"bound {b_ms:.3f} ms ({b_by})")
+        log(f"  similarity bf16 ({nq}x{n}x{m}, {entry_point(Qb.dtype, nq)}):"
+            f" kernel {ms_b:.3f} ms ({turns_b[0]:.3f}, {turns_b[3]:.3f}; "
+            f"{moved_b / ms_b / 1e6:.0f} GB/s, {bb_ms / ms_b:.0%} of the "
+            f"bound), torch.mm(out_dtype=float32) on the padded buffers "
+            f"{lib_b:.3f} ms ({turns_b[1]:.3f}, {turns_b[2]:.3f}; max diff "
+            f"to the kernel after the norms {err_lib:.3g}), on the odd-depth "
+            f"views {lib_odd:.3f} ms, bound {bb_ms:.3f} ms ({bb_by}, bf16 "
+            f"rate)")
         variants[str(nq)] = {
             "entry": entry_point(Q.dtype, nq), "shape": [nq, n, m],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-            "bf16_ms": ms_b, "bf16_max_abs_err": err_b, "turns_ms": turns}
-    del Rb
+            "turns_ms": turns, "bf16": {
+                "entry": entry_point(Qb.dtype, nq), "ms": ms_b,
+                "max_abs_err": err_b, "bound_ms": bb_ms, "bound_by": bb_by,
+                "library_ms": lib_b, "library_odd_depth_ms": lib_odd,
+                "library_max_abs_diff": err_lib, "turns_ms": turns_b}}
+        del Qb, Qp, Rp
 
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 is off for the plain version's fp32 matmul")
@@ -471,11 +512,14 @@ def check_similarity(torch, dev, arena, R_host) -> dict:
     for k in (BURST, 64):
         Qi = torch.as_tensor(fresh[:k], device=dev)
         qn = torch.sqrt(torch.sum(torch.square(Qi), dim=1)).clamp_min(EPS)
-        check(torch.equal(similarity_cuda(Qi, arena, qn, rn),
-                          similarity_ref(Qi, arena, qn, rn)),
-              f"similarity on {k} fresh integer-rating profiles x {n} x {m} "
-              f"({entry_point(Qi.dtype, k)}) bit-identical to the plain "
-              "version")
+        Qib = row_buffer(k, m, torch.bfloat16, dev).copy_(Qi)
+        for Qk, Rk in ((Qi, arena), (Qib, Rb)):
+            check(torch.equal(similarity_cuda(Qk, Rk, qn, rn),
+                              similarity_ref(Qk, Rk, qn, rn)),
+                  f"similarity on {k} fresh integer-rating profiles x {n} x "
+                  f"{m} in {Qk.dtype} ({entry_point(Qk.dtype, k)}) "
+                  "bit-identical to the plain version")
+    del Rb
     e = dict(variants[str(BURST)])
     e.update({"name": "similarity", "route": "cuda",
               "source": "src/repro_torch/csrc/similarity.cu",
@@ -2010,8 +2054,11 @@ def run_cf_family(torch, dev, R_host, buffered_ms: float) -> dict:
         "launches": counts, "resilient": resilient, "ml_build": ml,
         "serve_cf": served})
     metrics["phase_s"] = time.perf_counter() - t_phase
-    log(f"  build_step {build_s:.2f} s (torch.matmul of the fp32 copies "
-        f"{metrics['matmul_s']:.2f} s); sharded burst of {k}, first calls: "
+    log(f"  build_step {build_s:.3f} s (torch.mm(out_dtype=float32) on the "
+        f"padded rows {metrics['build_kernel']['library_ms'] / 1e3:.3f} s, "
+        f"torch.matmul "
+        f"of the fp32 copies {metrics['matmul_s']:.2f} s); sharded burst of "
+        f"{k}, first calls: "
         f"{sharded_ms:.1f} ms, maintain=True {sharded_m_ms:.1f} ms (phase "
         f"8's buffered burst of 32: {buffered_ms:.1f} ms); peak "
         f"{peak / 1e9:.2f} GB; phase {metrics['phase_s']:.1f} s")
@@ -2020,17 +2067,36 @@ def run_cf_family(torch, dev, R_host, buffered_ms: float) -> dict:
 
 def check_cf_build(torch, dev, R_b, vals, idx, build_s: float) -> dict:
     """``build_step``'s lists against a plain computation on the CPU for
-    a 4,096-row slice (within 1e-5, ids except near-ties); the kernel's
-    product timed beside ``torch.matmul`` on fp32 copies, TF32 off."""
+    a 4,096-row slice (within 1e-5, ids except near-ties); then its three
+    parts timed apart by CUDA events on the same inputs (the normalisation
+    into the kernel's aligned buffer, the similarity launch, the sort
+    slices), the launch twice around ``torch.mm(Rn, Rn.T,
+    out_dtype=torch.float32)`` on the whole zero-padded buffer (the
+    library's call for the same function: bf16 operands, fp32 sums), then
+    that call once on the odd-depth view the kernel reads (which cuBLAS
+    takes more slowly) and ``torch.matmul`` of fp32 copies, TF32 off."""
     from repro_torch.bridge import lists_match
     from repro_torch.core.knn import SORT_CHUNK_ROWS, sort_rows
     from repro_torch.core.similarity import EPS, row_norms
-    from repro_torch.kernels.similarity.kernel import similarity_cuda
+    from repro_torch.kernels.similarity.kernel import (row_buffer,
+                                                       similarity_cuda)
     N, m = R_b.shape
-    Rf = R_b.float()
-    Rn = (Rf / torch.clamp_min(row_norms(Rf), EPS)[:, None]).to(R_b.dtype)
-    del Rf
     rows = slice(0, SORT_CHUNK_ROWS)
+
+    def events_ms(fn):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    def normalise():
+        Rf = R_b.float()
+        return torch.div(Rf, torch.clamp_min(row_norms(Rf), EPS)[:, None],
+                         out=row_buffer(N, m, R_b.dtype, dev))
+
+    Rn, norm_ms = events_ms(normalise)
     t0 = time.perf_counter()
     pv, pi = sort_rows(sparse_rows_product(torch, Rn, rows))
     plain_s = time.perf_counter() - t0
@@ -2042,39 +2108,58 @@ def check_cf_build(torch, dev, R_b, vals, idx, build_s: float) -> dict:
           f"(max sorted diff {err:.3g}; {plain_s:.1f} s; {why})")
     del pv, pi
     ones = torch.ones(N, device=dev)
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    S = similarity_cuda(Rn, Rn, ones, ones)
-    end.record()
-    end.synchronize()
-    kernel_ms = start.elapsed_time(end)
-    del S
+    kernel = lambda: similarity_cuda(Rn, Rn, ones, ones)      # noqa: E731
+    Rp = padded_rows(Rn)
+    library = lambda: torch.mm(Rp, Rp.T,                      # noqa: E731
+                               out_dtype=torch.float32)
+    turns = []
+    for fn in (kernel, library, kernel,
+               lambda: torch.mm(Rn, Rn.T, out_dtype=torch.float32)):
+        S, ms = events_ms(fn)
+        turns.append(ms)
+        del S
+    kernel_ms, lib_ms, lib_odd_ms = (turns[0] + turns[2]) / 2, *turns[1::2]
+    del Rp
+
+    def sort_slices():
+        idx = torch.empty(S.shape, dtype=torch.int32, device=dev)
+        for r0 in range(0, N, SORT_CHUNK_ROWS):
+            sl = slice(r0, r0 + SORT_CHUNK_ROWS)
+            S[sl], idx[sl] = sort_rows(S[sl])
+        return idx
+
+    S = kernel()
+    _, sort_ms = events_ms(sort_slices)
+    del S, _
     torch.backends.cuda.matmul.allow_tf32 = False
     Rf = Rn.float()
     del Rn
-    start.record()
-    S = torch.matmul(Rf, Rf.T)
-    end.record()
-    end.synchronize()
-    matmul_ms = start.elapsed_time(end)
+    S, matmul_ms = events_ms(lambda: torch.matmul(Rf, Rf.T))
     del S, Rf
     torch.cuda.empty_cache()
-    # The operations over the peak rate of the inputs' type: bf16 inputs
-    # against the tensor cores' bf16 rate, though the kernel multiplies on
-    # the CUDA cores in fp32.
+    # The operations over the peak rate of the inputs' type: bf16 on the
+    # tensor cores, where the kernel multiplies them.
     flops = 2.0 * N * N * m
-    if R_b.dtype == torch.bfloat16:
-        flops *= FP32_FLOPS_PER_S / BF16_FLOPS_PER_S
+    rate = (BF16_FLOPS_PER_S if R_b.dtype == torch.bfloat16
+            else FP32_FLOPS_PER_S)
     moved = 2.0 * R_b.element_size() * N * m + 4.0 * 2 * N + 4.0 * N * N
-    b_ms, b_by = bound(moved, flops)
-    log(f"  build_step ({N} x {m}, {R_b.dtype}): {build_s:.2f} s; its "
-        f"similarity launch {kernel_ms:.1f} ms ({b_ms / kernel_ms:.0%} of the"
-        f" bound, {b_ms:.1f} ms, {b_by}); torch.matmul of fp32 copies "
+    b_ms, b_by = bound(moved, flops, rate)
+    log(f"  build_step ({N} x {m}, {R_b.dtype}): {build_s:.3f} s; on the "
+        f"same inputs: normalisation {norm_ms:.1f} ms, its similarity launch "
+        f"{kernel_ms:.1f} ms ({turns[0]:.1f}, {turns[2]:.1f}; "
+        f"{b_ms / kernel_ms:.0%} of the bound, {b_ms:.1f} ms, {b_by}), the "
+        f"sort slices {sort_ms:.1f} ms; torch.mm(out_dtype=float32) on the "
+        f"padded buffer {lib_ms:.1f} ms, on the odd-depth view "
+        f"{lib_odd_ms:.1f} ms; torch.matmul of fp32 copies "
         f"{matmul_ms:.1f} ms")
     return {"build_s": build_s, "matmul_s": matmul_ms / 1e3,
             "build_kernel": {"shape": [N, N, m], "dtype": str(R_b.dtype),
-                             "ms": kernel_ms, "bound_ms": b_ms,
-                             "bound_by": b_by, "library_ms": matmul_ms,
+                             "ms": kernel_ms, "turns_ms": turns,
+                             "bound_ms": b_ms, "bound_by": b_by,
+                             "library_ms": lib_ms,
+                             "library_odd_depth_ms": lib_odd_ms,
+                             "matmul_f32_copies_ms": matmul_ms,
+                             "normalise_ms": norm_ms, "sort_ms": sort_ms,
                              "max_abs_err_slice": err},
             "plain_slice_cpu_s": plain_s}
 

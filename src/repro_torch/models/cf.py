@@ -28,6 +28,7 @@ from repro_torch.core import twinsearch as ts
 from repro_torch.core.knn import SORT_CHUNK_ROWS, sort_rows
 from repro_torch.core.similarity import EPS, row_norms
 from repro_torch.core.types import CFState, set0_cap
+from repro_torch.kernels.similarity.kernel import row_buffer
 from repro_torch.kernels.similarity.ops import cosine_similarity
 
 
@@ -35,14 +36,18 @@ def build_step(R: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Full build: R (n, m) -> ascending sorted lists (vals f32, idx i32).
 
     Rows are normalised as the reference does: the fp32 norm, the division
-    in fp32, the cast back to ``R.dtype``.  The product Rn·Rnᵀ runs on the
-    similarity kernel in ``R``'s dtype (float32 or bfloat16) with unit
+    in fp32, the cast back to ``R.dtype``, written straight into a buffer
+    whose rows the kernel reads as they lie (bf16: a row stride of
+    roundup(m, 8) items, ``kernel.row_buffer``), so no copy is paid.  The
+    product Rn·Rnᵀ runs on the similarity kernel in ``R``'s dtype (float32
+    on the CUDA cores without TF32, bfloat16 on the tensor cores) with unit
     norms, so its epilogue divides by max(1·1, EPS) = 1 exactly, and
-    accumulates in fp32 without TF32.  The sort is stable, in
-    ``SORT_CHUNK_ROWS`` row slices written back over the product."""
+    accumulates in fp32.  The sort is stable, in ``SORT_CHUNK_ROWS`` row
+    slices written back over the product."""
     Rf = R.float()
     norms = torch.clamp_min(row_norms(Rf), EPS)
-    Rn = (Rf / norms[:, None]).to(R.dtype).contiguous()
+    Rn = torch.div(Rf, norms[:, None],
+                   out=row_buffer(*R.shape, R.dtype, R.device))
     del Rf
     ones = torch.ones(R.shape[0], dtype=torch.float32, device=R.device)
     S = cosine_similarity(Rn, Rn, ones, ones)

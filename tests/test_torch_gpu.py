@@ -6,8 +6,10 @@ This file imports neither ``jax`` nor ``repro`` (the card's machine has no
 JAX), and every test is marked ``gpu`` and skips without a CUDA device.
 Run it on the card with ``python -m pytest -m gpu tests/test_torch_gpu.py``.
 
-Tolerances: ``similarity`` within 1e-5 (f32) and 2e-2 (bf16), the bounds
-of ``tests/test_kernels.py``; ``knn_score``, ``embedding_bag`` and
+Tolerances: ``similarity`` within 1e-5 (f32, the bound of
+``tests/test_kernels.py``; bf16, whose products are exact in fp32 and whose
+outputs are cosines, at most 1 in magnitude: only the order of the fp32
+sums differs), bit for bit on integer ratings in both dtypes; ``knn_score``, ``embedding_bag`` and
 ``list_merge`` bit-for-bit (same serial order; pure data movement);
 ``twin_probe`` and ``verify_rows`` exactly (masks, counts and flags).  The
 write path: ``RotationPlan.finalize`` bit-identical to
@@ -73,6 +75,10 @@ torch.set_num_threads(2)
 
 pytestmark = pytest.mark.gpu
 
+# similarity: f32, and bf16 (unit-norm rows, or any rows divided by their
+# norms in the epilogue).
+SIM_TOL = 1e-5
+
 
 @pytest.fixture
 def cuda():
@@ -104,8 +110,7 @@ def test_similarity_kernel_matches_plain(cuda, nq, n, m, dtype):
     torch.cuda.synchronize()
     assert launch_counts()["similarity"] == before + 1
     ref = similarity_ref(Q, R, qn.clamp_min(1e-12), rn.clamp_min(1e-12))
-    tol = 1e-5 if dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(out, ref, atol=tol, rtol=0)
+    torch.testing.assert_close(out, ref, atol=SIM_TOL, rtol=0)
 
 
 def test_similarity_kernel_exact_on_integer_ratings(cuda):
@@ -121,14 +126,18 @@ def test_similarity_kernel_exact_on_integer_ratings(cuda):
                            similarity.cosine_vs_all(R, norms, R[q]))
 
 
-@pytest.mark.parametrize("nq", [1, 31, 32, 33, 63, 64, 65, 130])
+@pytest.mark.parametrize("nq", [1, 31, 32, 33, 63, 64, 65, 129, 130, 257])
 @pytest.mark.parametrize("m", [7, 100, 515])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_similarity_kernel_variants_and_edges(cuda, nq, m, dtype):
-    """Both tile variants (32 rows of Q up to nq = 32, 64 above) at their
-    edges; n = 300 is not a multiple of the 128-column tile; m = 7 is
-    below one 32-item slice, 100 is not a multiple of it, 515 is odd (rows
-    off 16-byte alignment)."""
+    """f32: both tile variants (32 rows of Q up to nq = 32, 64 above) at
+    their edges; m = 7 is below one 32-item slice, 100 is not a multiple of
+    it, 515 is odd (rows off 16-byte alignment).  bf16 (the wgmma entry
+    point, 128-row tiles of two 64-row warpgroups): nq <= 64 leaves the
+    second warpgroup idle, 129 and 257 start a ragged tile row; m = 7 ends
+    within one 64-item step, 100 and 515 across steps, and their rows are
+    copied to an aligned stride first.  n = 300 is not a multiple of
+    either route's tile."""
     n = 300
     rng = np.random.default_rng(nq * 100 + m)
     Q = torch.as_tensor(rng.normal(size=(nq, m)).astype(np.float32),
@@ -139,8 +148,7 @@ def test_similarity_kernel_variants_and_edges(cuda, nq, m, dtype):
     rn = torch.sqrt(torch.sum(torch.square(R.float()), dim=1))
     out = _launched("similarity", cosine_similarity, Q, R, qn, rn)
     ref = similarity_ref(Q, R, qn.clamp_min(1e-12), rn.clamp_min(1e-12))
-    tol = 1e-5 if dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(out, ref, atol=tol, rtol=0)
+    torch.testing.assert_close(out, ref, atol=SIM_TOL, rtol=0)
 
 
 @pytest.mark.parametrize("nq", [32, 64])
@@ -159,6 +167,44 @@ def test_similarity_kernel_exact_on_integer_ratings_per_variant(cuda, nq):
                                            rn.clamp_min(1e-12)))
     for q in range(nq):
         assert torch.equal(out[q], similarity.cosine_vs_all(R, rn, Q[q]))
+
+
+@pytest.mark.parametrize("nq", [1, 32, 64, 129])
+def test_similarity_bf16_exact_on_integer_ratings(cuda, nq):
+    """Integer ratings in bf16 (0-5 are exact there): every product and
+    partial sum is an integer below 2^24, so the tensor cores' sums equal
+    the plain version's bit for bit, the epilogue's rounding included
+    (m = 1,001: rows copied to an aligned stride, a ragged last step)."""
+    R = torch.as_tensor(_ratings(np.random.default_rng(nq), 700, 1001),
+                        device=cuda).bfloat16()
+    Q = torch.as_tensor(_ratings(np.random.default_rng(nq + 1), nq, 1001),
+                        device=cuda).bfloat16()
+    rn, qn = similarity.row_norms(R.float()), similarity.row_norms(Q.float())
+    out = _launched("similarity", cosine_similarity, Q, R, qn, rn)
+    assert torch.equal(out, similarity_ref(Q, R, qn.clamp_min(1e-12),
+                                           rn.clamp_min(1e-12)))
+
+
+def test_similarity_bf16_unit_rows_and_strided_views(cuda):
+    """Unit-norm bf16 rows, as ``models/cf.build_step`` gives them, within
+    1e-5; taken by ``similarity_cuda`` as views with a row stride above m
+    (ld = 520 > m = 515) and a row offset, with no copy; an unaligned
+    stride raises there."""
+    from repro_torch.kernels.similarity.kernel import similarity_cuda
+    rng = np.random.default_rng(3)
+    n, m, ld = 300, 515, 520
+    x = rng.normal(size=(n + 5, m)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    buf = torch.zeros((n + 5, ld), device=cuda, dtype=torch.bfloat16)
+    buf[:, :m] = torch.as_tensor(x, device=cuda)
+    R, Q = buf[:n, :m], buf[n - 130:, :m]
+    ones_q = torch.ones(Q.shape[0], device=cuda)
+    ones_n = torch.ones(n, device=cuda)
+    out = _launched("similarity", similarity_cuda, Q, R, ones_q, ones_n)
+    ref = similarity_ref(Q, R, ones_q, ones_n)
+    torch.testing.assert_close(out, ref, atol=SIM_TOL, rtol=0)
+    with pytest.raises(ValueError, match="row stride"):
+        similarity_cuda(Q, R.contiguous(), ones_q, ones_n)
 
 
 def _knn_case(rng, B, k, N, m):
@@ -940,7 +986,8 @@ def test_resilient_burst_on_card_heals_bit_exact(nccl1):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,m", [(943, 1682), (300, 77), (4100, 257)])
+@pytest.mark.parametrize("n,m", [(943, 1682), (300, 77), (4100, 257),
+                                 (4096, 1682)])
 def test_build_step_on_card_matches_plain(cuda, dtype, n, m):
     """The model's build on the similarity kernel against its plain path
     on the CPU: lists within 1e-5, ids except near-ties; sorted across

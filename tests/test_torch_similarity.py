@@ -126,10 +126,12 @@ def test_burst_must_fit_free_slots(rng):
 @pytest.mark.parametrize("dtype,tag", [(torch.float32, "f32"),
                                        (torch.bfloat16, "bf16")])
 def test_similarity_variant_by_nq(monkeypatch, nq, bm, dtype, tag):
-    """The wrapper picks the 32-row tile up to the server's burst of 32
-    and the 64-row tile above it, and passes Q, R, the norms and the
-    output as pointers, then nq, n and m as ints and the stream last
-    (checked through a fake library)."""
+    """f32: the wrapper picks the 32-row tile up to the server's burst of
+    32 and the 64-row tile above it.  bf16: one entry point for every nq,
+    the tensor cores' ``cosine_similarity_bf16_wgmma``.  Both pass Q, R,
+    the norms and the output as pointers, then nq, n and m as ints (bf16:
+    and the row strides of Q and R) and the stream last (checked through a
+    fake library)."""
     import ctypes
     import types
 
@@ -144,8 +146,8 @@ def test_similarity_variant_by_nq(monkeypatch, nq, bm, dtype, tag):
             return 0
         return call
 
-    names = [f"cosine_similarity_{t}_bm{b}" for t in ("f32", "bf16")
-             for b in (32, 64)]
+    names = ["cosine_similarity_f32_bm32", "cosine_similarity_f32_bm64",
+             "cosine_similarity_bf16_wgmma"]
     fake = _lib.Kernel("similarity")
     monkeypatch.setattr(fake, "load", lambda: types.SimpleNamespace(
         **{name: entry(name) for name in names}))
@@ -153,19 +155,100 @@ def test_similarity_variant_by_nq(monkeypatch, nq, bm, dtype, tag):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: types.SimpleNamespace(cuda_stream=0))
     n, m = 300, 77
-    Q, R = torch.zeros((nq, m), dtype=dtype), torch.zeros((n, m), dtype=dtype)
+    Q = skernel.row_buffer(nq, m, dtype, "cpu").zero_()
+    R = skernel.row_buffer(n, m, dtype, "cpu").zero_()
     qn, rn, out = torch.ones(nq), torch.ones(n), torch.empty((nq, n))
     assert skernel.block_rows(nq) == bm
-    assert skernel.entry_point(dtype, nq) == f"cosine_similarity_{tag}_bm{bm}"
+    want = ("cosine_similarity_bf16_wgmma" if dtype == torch.bfloat16
+            else f"cosine_similarity_{tag}_bm{bm}")
+    assert skernel.entry_point(dtype, nq) == want
     skernel.launch_similarity(Q, R, qn, rn, out)
     (name, cargs), = calls
-    assert name == f"cosine_similarity_{tag}_bm{bm}"
+    assert name == want
     p, i = ctypes.c_void_p, ctypes.c_int
-    assert [type(c) for c in cargs] == [p] * 5 + [i] * 3 + [p]
+    ints = [nq, n, m] + ([80, 80] if dtype == torch.bfloat16 else [])
+    assert [type(c) for c in cargs] == [p] * 5 + [i] * len(ints) + [p]
     assert [c.value for c in cargs[:5]] == [t.data_ptr()
                                             for t in (Q, R, qn, rn, out)]
-    assert [c.value for c in cargs[5:8]] == [nq, n, m]
+    assert [c.value for c in cargs[5:-1]] == ints
     assert fake.launches == 1
+
+
+def _meta(shape, dtype=torch.bfloat16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _unit_norms(*ns):
+    return [torch.ones(k, device="meta") for k in ns]
+
+
+@pytest.mark.parametrize("case", ["stride77", "base_off16", "items_strided"])
+def test_similarity_cuda_refuses_unaligned_bf16_rows(case):
+    """TMA reads rows whose base and row stride are multiples of 16 bytes:
+    a bf16 row stride of 77 items, a base 2 bytes past the buffer's (a
+    column offset), or items not adjacent raise, with no fallback."""
+    from repro_torch.kernels.similarity.kernel import similarity_cuda
+    good = _meta((6, 80))[:, :77]
+    bad = {"stride77": _meta((6, 77)),
+           "base_off16": _meta((6, 80))[:, 1:78],
+           "items_strided": _meta((6, 154))[:, ::2]}[case]
+    with pytest.raises(ValueError, match="row stride"):
+        similarity_cuda(bad, good, *_unit_norms(6, 6))
+    with pytest.raises(ValueError, match="row stride"):
+        similarity_cuda(good, bad, *_unit_norms(6, 6))
+
+
+@pytest.mark.parametrize("n,m", [(7, 77), (300, 515), (33, 8)])
+def test_similarity_cuda_takes_aligned_views_and_counts_logical_m(n, m):
+    """The ``[:, :m]`` view of an (n, roundup(m, 8)) buffer goes to the
+    kernel as it lies, and its cost counts the logical m, not the stride."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.similarity import kernel as skernel
+    from repro_torch.launch.trace import Counter
+    R = skernel.row_buffer(n, m, torch.bfloat16, "meta")
+    assert R.shape == (n, m) and R.stride() == (-(-m // 8) * 8, 1)
+    Q = R[n // 2:]
+    before = _lib.SIMILARITY.launches
+    with Counter() as counter:
+        out = skernel.similarity_cuda(Q, R, *_unit_norms(Q.shape[0], n))
+    assert out.shape == (Q.shape[0], n) and out.dtype == torch.float32
+    cost = skernel.cost(Q.shape[0], n, m, torch.bfloat16)
+    assert counter.kernels["similarity"] == {
+        "calls": 1, "flops": cost.flops, "bytes": cost.bytes}
+    assert _lib.SIMILARITY.launches == before
+
+
+@pytest.mark.parametrize("m", [1, 8, 77, 515])
+def test_row_buffer_pads_with_zeros(m):
+    """A bf16 ``row_buffer`` is the ``[:, :m]`` view of a buffer whose pad
+    columns are zero, so the whole buffer's row products equal the view's."""
+    from repro_torch.kernels.similarity import kernel as skernel
+    R = skernel.row_buffer(9, m, torch.bfloat16, "cpu")
+    R.copy_(torch.randint(0, 6, (9, m), generator=torch.Generator()
+                          .manual_seed(m)))
+    ld = R.stride(0)
+    assert ld % 8 == 0 and 0 <= ld - m < 8
+    full = R.as_strided((9, ld), (ld, 1))
+    assert torch.equal(full[:, :m], R)
+    assert not full[:, m:].any()
+    assert torch.equal(full.float() @ full.float().T, R.float() @ R.float().T)
+
+
+@pytest.mark.parametrize("q_off", [0, 1])
+def test_cosine_similarity_copies_unaligned_bf16_rows(q_off):
+    """``ops.cosine_similarity`` takes bf16 rows of any stride: unaligned
+    ones are copied to an aligned buffer, then the kernel (here its
+    ``meta`` branch) runs on the copy with the logical m."""
+    from repro_torch.kernels.similarity import kernel as skernel
+    from repro_torch.launch.trace import Counter
+    Q = _meta((5, 40))[:, q_off:q_off + 33]
+    R = _meta((70, 33))
+    assert not skernel.rows_aligned(R)
+    with Counter() as counter:
+        out = cosine_similarity(Q, R)
+    assert out.shape == (5, 70) and out.is_meta
+    cost = skernel.cost(5, 70, 33, torch.bfloat16)
+    assert counter.kernels["similarity"]["flops"] == cost.flops
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
