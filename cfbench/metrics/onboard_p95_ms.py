@@ -1,0 +1,10 @@
+"""95th percentile milliseconds over every onboard due in the window,
+each from its due time to the return of ``CFServer.onboard_user``."""
+from cfbench.bench import percentile
+
+
+def read(records):
+    if records.get("kind") != "onboard":
+        return None
+    return percentile([(r["end"] - r["due"]) * 1e3
+                       for r in records["requests"]], 95)
