@@ -30,6 +30,7 @@ from repro_torch.core.knn import SORT_CHUNK_ROWS
 from repro_torch.core.maintenance import merge_new_users_into_base
 from repro_torch.core.types import CFState, SENTINEL, SENTINEL_GATE
 from repro_torch.sorting import argsort_rows
+from repro_torch.spans import RECORDER
 
 
 def unsorted_rows(sim_vals: torch.Tensor, sim_idx: torch.Tensor,
@@ -69,13 +70,14 @@ def merge_base_rows(sim_vals: torch.Tensor, sim_idx: torch.Tensor,
     Entries pointing into the write region are gated to (SENTINEL, -1),
     the gated lists are stable-sorted ascending again, and the whole burst
     merges in one pass.  Returns the merged ascending (b, L + k) lists."""
-    gi_raw = sim_idx[rows]
-    gate = gi_raw < n_base
-    gv = torch.where(gate, sim_vals[rows], SENTINEL)
-    gi = torch.where(gate, gi_raw, -1)
-    gv, order = argsort_rows(gv)
-    gi = torch.gather(gi, 1, order)
-    return merge_new_users_into_base(gv, gi, U[:, rows], buf_ids)
+    with RECORDER.span("rotation.merge", device=sim_vals.is_cuda):
+        gi_raw = sim_idx[rows]
+        gate = gi_raw < n_base
+        gv = torch.where(gate, sim_vals[rows], SENTINEL)
+        gi = torch.where(gate, gi_raw, -1)
+        gv, order = argsort_rows(gv)
+        gi = torch.gather(gi, 1, order)
+        return merge_new_users_into_base(gv, gi, U[:, rows], buf_ids)
 
 
 def _burst_rows(U: torch.Tensor, *, n_base: int, n_frozen: int,
@@ -101,18 +103,26 @@ def _assemble(state: CFState, *, n_base: int, n_frozen: int, extra: int,
     ``[0, n_base)`` take ``merged(r0, r1)``, the merged (r1 - r0, L + k)
     lists of those rows; the burst ``[n_base, n_frozen)`` is built from the
     recovered block ``U``; rows ``[n_frozen, n_active)`` are carried.  Both
-    rotation modes assemble through here, so they agree bit for bit."""
+    rotation modes assemble through here, so they agree bit for bit.
+
+    Two ``rotation.assemble`` spans lie beside the merges
+    (``rotation.merge``): the allocation with the ratings' and norms'
+    copies, and the burst, carried and write-region rows; the merged rows'
+    copies lie between the merges."""
     n_act = state.n_active
     k = n_frozen - n_base
     n_new = n_act + extra
     dev = state.device
-    ratings = torch.zeros((n_new, state.n_items), dtype=state.ratings.dtype,
-                          device=dev)
-    ratings[:n_act] = state.ratings[:n_act]
-    norms = torch.zeros((n_new,), dtype=state.norms.dtype, device=dev)
-    norms[:n_act] = state.norms[:n_act]
-    sim_vals = torch.empty((n_new, n_new), dtype=torch.float32, device=dev)
-    sim_idx = torch.empty((n_new, n_new), dtype=torch.int32, device=dev)
+    on_card = dev.type == "cuda"
+    with RECORDER.span("rotation.assemble", device=on_card):
+        ratings = torch.zeros((n_new, state.n_items),
+                              dtype=state.ratings.dtype, device=dev)
+        ratings[:n_act] = state.ratings[:n_act]
+        norms = torch.zeros((n_new,), dtype=state.norms.dtype, device=dev)
+        norms[:n_act] = state.norms[:n_act]
+        sim_vals = torch.empty((n_new, n_new), dtype=torch.float32,
+                               device=dev)
+        sim_idx = torch.empty((n_new, n_new), dtype=torch.int32, device=dev)
 
     def fill(r0: int, r1: int, v: torch.Tensor, i: torch.Tensor) -> None:
         sim_vals[r0:r1], sim_idx[r0:r1] = _fit_width(v, i, n_new)
@@ -123,17 +133,19 @@ def _assemble(state: CFState, *, n_base: int, n_frozen: int, extra: int,
         for r0 in range(0, n_base, SORT_CHUNK_ROWS):
             r1 = min(n_base, r0 + SORT_CHUNK_ROWS)
             fill(r0, r1, *merged(r0, r1))
-        sim_vals[n_base:n_frozen], sim_idx[n_base:n_frozen] = _burst_rows(
-            U, n_base=n_base, n_frozen=n_frozen, n_new=n_new)
         carried_from = n_frozen
-    for r0 in range(carried_from, n_act, SORT_CHUNK_ROWS):
-        r1 = min(n_act, r0 + SORT_CHUNK_ROWS)
-        fill(r0, r1, state.sim_vals[r0:r1], state.sim_idx[r0:r1])
-
-    # Fresh write region: all-SENTINEL rows with identity permutations
-    # (what ``build_state`` gives inactive slots).
-    sim_vals[n_act:] = SENTINEL
-    sim_idx[n_act:] = torch.arange(n_new, dtype=torch.int32, device=dev)
+    with RECORDER.span("rotation.assemble", device=on_card):
+        if k:
+            sim_vals[n_base:n_frozen], sim_idx[n_base:n_frozen] = \
+                _burst_rows(U, n_base=n_base, n_frozen=n_frozen,
+                            n_new=n_new)
+        for r0 in range(carried_from, n_act, SORT_CHUNK_ROWS):
+            r1 = min(n_act, r0 + SORT_CHUNK_ROWS)
+            fill(r0, r1, state.sim_vals[r0:r1], state.sim_idx[r0:r1])
+        # Fresh write region: all-SENTINEL rows with identity permutations
+        # (what ``build_state`` gives inactive slots).
+        sim_vals[n_act:] = SENTINEL
+        sim_idx[n_act:] = torch.arange(n_new, dtype=torch.int32, device=dev)
     return CFState(ratings=ratings, norms=norms, sim_vals=sim_vals,
                    sim_idx=sim_idx, n_active=n_act)
 
@@ -148,10 +160,11 @@ def rotate_arena_frozen(state: CFState, *, n_base: int, n_frozen: int,
     is also the deterministic replay of a WAL ``rotate_commit`` record."""
     U = merged = None
     if n_frozen > n_base:
-        buf = torch.arange(n_base, n_frozen, dtype=torch.int32,
-                           device=state.device)
-        U = unsorted_rows(state.sim_vals, state.sim_idx,
-                          slice(n_base, n_frozen))
+        with RECORDER.span("rotation.recover"):
+            buf = torch.arange(n_base, n_frozen, dtype=torch.int32,
+                               device=state.device)
+            U = unsorted_rows(state.sim_vals, state.sim_idx,
+                              slice(n_base, n_frozen))
 
         def merged(r0: int, r1: int):
             return merge_base_rows(state.sim_vals, state.sim_idx, U,

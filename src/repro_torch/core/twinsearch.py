@@ -35,6 +35,7 @@ from repro_torch.core.types import (CFState, OnboardStats, SENTINEL,
                                     TwinResult, active_mask, as_index,
                                     set0_cap)
 from repro_torch.sorting import argsort_rows, top_k
+from repro_torch.spans import RECORDER
 
 
 def probe_sims(state: CFState, r0: torch.Tensor, probe_idx: torch.Tensor
@@ -129,27 +130,42 @@ def onboard_twinsearch(state: CFState, r0: torch.Tensor, probe_idx, *,
     and the onboarding block's entries (users added after the twin's list
     was built) are recomputed at O(k·m), so the copy is exactly what a
     traditional build would give.  Otherwise, including a not-found
-    overflow, the traditional O(n·m) build runs."""
+    overflow, the traditional O(n·m) build runs.
+
+    Spans: ``twinsearch.search`` (the search up to the found flag's read),
+    then ``twinsearch.copy`` or ``baseline.fallback``, each with its sort
+    and append."""
     r0 = r0.to(state.device)
-    res = twinsearch_find(state, r0, probe_idx, s_max=s_max, n_base=n_base,
-                          k_cap=k_cap, tol=tol)
+    with RECORDER.span("twinsearch.search"):
+        res = twinsearch_find(state, r0, probe_idx, s_max=s_max,
+                              n_base=n_base, k_cap=k_cap, tol=tol)
+        found = bool(res.found)
     N = state.capacity
-    if bool(res.found):
-        tidx = state.sim_idx[res.twin_idx].long()
-        u = torch.full((N,), SENTINEL, dtype=state.sim_vals.dtype,
-                       device=state.device)
-        u[tidx] = state.sim_vals[res.twin_idx]
-        if k_cap > 0:
-            blk = torch.clamp(n_base + torch.arange(k_cap,
-                                                    device=state.device),
-                              max=N - 1)
-            u[blk] = cosine_vs_all(state.ratings[blk], state.norms[blk], r0)
-        sims_row = u
-    else:
-        sims_row = cosine_vs_all(state.ratings, state.norms, r0)
+    if found:
+        with RECORDER.span("twinsearch.copy"):
+            tidx = state.sim_idx[res.twin_idx].long()
+            u = torch.full((N,), SENTINEL, dtype=state.sim_vals.dtype,
+                           device=state.device)
+            u[tidx] = state.sim_vals[res.twin_idx]
+            if k_cap > 0:
+                blk = torch.clamp(n_base + torch.arange(k_cap,
+                                                        device=state.device),
+                                  max=N - 1)
+                u[blk] = cosine_vs_all(state.ratings[blk], state.norms[blk],
+                                       r0)
+            return _append_row(state, r0, u), res
+    with RECORDER.span("baseline.fallback"):
+        return _append_row(state, r0,
+                           cosine_vs_all(state.ratings, state.norms, r0)), res
+
+
+def _append_row(state: CFState, r0: torch.Tensor,
+                sims_row: torch.Tensor) -> CFState:
+    """Append ``r0`` with the list of its unsorted similarity row (inactive
+    slots masked to SENTINEL)."""
     sims_row = torch.where(active_mask(state), sims_row, SENTINEL)
     vals, idx = argsort_rows(sims_row)
-    return baseline.append_user(state, r0, vals, idx), res
+    return baseline.append_user(state, r0, vals, idx)
 
 
 def onboard_batch(state: CFState, R_new: torch.Tensor, probe_idx, *,

@@ -30,6 +30,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.spans import RECORDER
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -77,10 +79,13 @@ def _c_arg(a):
 
 class Kernel:
     """One ``.cu`` source: its library, its C entry points and the count of
-    launches made through ``launch``."""
+    launches made through ``launch``.  Each launch is a device span
+    ``kernel.<name>`` of ``repro_torch.spans`` under the span open at the
+    time (none outside a request)."""
 
     def __init__(self, name: str):
         self.name = name
+        self.span_name = f"kernel.{name}"
         self.source = CSRC / f"{name}.cu"
         self.launches = 0
         self._lib: ctypes.CDLL | None = None
@@ -153,7 +158,8 @@ class Kernel:
             f.argtypes = list(types)
             f.restype = ctypes.c_int
             self._prototypes[fn] = types
-        rc = f(*cargs)
+        with RECORDER.span(self.span_name, device=stream):
+            rc = f(*cargs)
         if rc != 0:
             raise RuntimeError(f"{self.name}.{fn} launch failed: CUDA error "
                                f"{rc}")

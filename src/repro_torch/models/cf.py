@@ -30,6 +30,7 @@ from repro_torch.core.similarity import EPS, row_norms
 from repro_torch.core.types import CFState, set0_cap
 from repro_torch.kernels.similarity.kernel import row_buffer
 from repro_torch.kernels.similarity.ops import cosine_similarity
+from repro_torch.spans import RECORDER
 
 
 def build_step(R: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -43,7 +44,13 @@ def build_step(R: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     on the CUDA cores without TF32, bfloat16 on the tensor cores) with unit
     norms, so its epilogue divides by max(1·1, EPS) = 1 exactly, and
     accumulates in fp32.  The sort is stable, in ``SORT_CHUNK_ROWS`` row
-    slices written back over the product."""
+    slices written back over the product.  One call is one request of
+    ``repro_torch.spans``, ``cf.build_step``."""
+    with RECORDER.request("cf.build_step"):
+        return _build(R)
+
+
+def _build(R: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     Rf = R.float()
     norms = torch.clamp_min(row_norms(Rf), EPS)
     Rn = torch.div(Rf, norms[:, None],

@@ -105,7 +105,6 @@ import contextlib
 import dataclasses
 import logging
 import math
-import time
 import warnings
 from collections import deque
 from dataclasses import dataclass, field
@@ -128,6 +127,7 @@ from repro_torch.serving import guard
 from repro_torch.serving.config import ServerConfig
 from repro_torch.serving.dedup import dedup_rows
 from repro_torch.serving.wal import WriteAheadLog
+from repro_torch.spans import RECORDER
 from repro_torch.training import checkpoint
 from repro_torch.training.elastic import Action, StragglerMonitor
 
@@ -151,8 +151,35 @@ SHED_QUERY_K_DIV = 4
 GENERATOR_KEY = "torch_generator_state"
 
 
+def _between_ms(first, last) -> float:
+    """Milliseconds from the start of span ``first`` to the end of span
+    ``last``."""
+    return (last.t0 + last.ns - first.t0) * 1e-6
+
+
 @dataclass
 class ServerStats:
+    """The server's counters and timings, always on.
+
+    Every timing is the host duration of a span of ``repro_torch.spans``
+    (the same start and stop points), appended when the span closes:
+    ``onboard_ms`` of ``cf_server.compute``, ``rotation_ms`` of
+    ``cf_server.rotate`` (or an incremental plan's summed steps),
+    ``rotation_pause_ms`` of ``cf_server.rotate`` or
+    ``cf_server.rotation_pause``, ``query_ms`` from the start of
+    ``knn.top_k`` to the end of ``knn.score`` / ``knn.predict``,
+    ``wal_append_ms``, ``add_rating_ms`` (``cf_server.apply_rating``),
+    ``cache_init_ms``, ``plan_step_ms``, ``snapshot_save_ms`` and
+    ``replica_reset_ms`` of the span named after them, and the two
+    ``recover_*_ms`` of ``cf_server.recover_restore`` / ``_replay``.
+
+    The deques are rings: ``latency_window`` (1,024) entries for
+    ``onboard_ms``, ``query_ms``, ``query_dedup_savings``,
+    ``wal_append_ms``, ``add_rating_ms`` and ``plan_step_ms``; 64 for
+    ``rotation_ms``, ``rotation_pause_ms``, ``cache_init_ms``,
+    ``snapshot_save_ms`` and ``replica_reset_ms``.  ``summary()``'s
+    percentiles and maxima cover those trailing entries only; the counters
+    cover the server's life."""
     onboarded: int = 0
     twin_hits: int = 0
     fallbacks: int = 0
@@ -349,6 +376,7 @@ class CFServer:
                     "maps the old names)", DeprecationWarning, stacklevel=2)
             config = ServerConfig.from_kwargs(**legacy)
         self.device = require_device(device, "CFServer")
+        self._cuda = self.device.type == "cuda"     # device spans' events
         self.config = config
         self._rcfg = config.rotation
         self._wcfg = config.wal
@@ -410,29 +438,36 @@ class CFServer:
         # norm of 0 (sims near 1e11).  The port refreshes those rows first.
         self._cache_rows = 0
 
+        with RECORDER.request("cf_server.init"):
+            self._build(ratings, recover)
+
+    def _build(self, ratings, recover: bool) -> None:
+        """The arena (built, or restored and replayed), the replicas and
+        the first snapshot."""
+        config = self.config
         restored = fell_back = False
         if recover and self.snapshot_dir is not None:
-            t0 = time.perf_counter()
-            restored, fell_back = self._restore_checkpoint()
-            self._sync()
-            self.stats.recover_restore_ms = (time.perf_counter() - t0) * 1e3
+            with RECORDER.span("cf_server.recover_restore") as span:
+                restored, fell_back = self._restore_checkpoint()
+                self._sync()
+            self.stats.recover_restore_ms = span.ms
         if not restored:
             self.state: CFState = knn.build_state(
                 torch.as_tensor(ratings).to(self.device),
                 capacity_extra=config.capacity_extra, measure=config.measure)
         self._retarget()
         if recover and self.wal is not None:
-            t0 = time.perf_counter()
-            self._replay_wal(restored, fell_back)
-            self._sync()
-            self.stats.recover_replay_ms = (time.perf_counter() - t0) * 1e3
+            with RECORDER.span("cf_server.recover_replay") as span:
+                self._replay_wal(restored, fell_back)
+                self._sync()
+            self.stats.recover_replay_ms = span.ms
 
         if config.replication is not None:
             self._sync()            # the build's work is not the reset's
-            t0 = time.perf_counter()
-            self.replicas = ReplicatedArena(self.state, config.replication)
-            self.stats.replica_reset_ms.append(
-                (time.perf_counter() - t0) * 1e3)
+            with RECORDER.span("cf_server.replica_reset") as span:
+                self.replicas = ReplicatedArena(self.state,
+                                                config.replication)
+            self.stats.replica_reset_ms.append(span.ms)
 
         self._snapshot = None
         self._take_snapshot()       # the construction-time good state
@@ -554,9 +589,9 @@ class CFServer:
         if self.replicas is None:
             return
         self._sync()
-        t0 = time.perf_counter()
-        self.replicas.reset(self.state)
-        self.stats.replica_reset_ms.append((time.perf_counter() - t0) * 1e3)
+        with RECORDER.span("cf_server.replica_reset") as span:
+            self.replicas.reset(self.state)
+        self.stats.replica_reset_ms.append(span.ms)
 
     # -- rotation -----------------------------------------------------------
 
@@ -566,12 +601,12 @@ class CFServer:
         and is dropped; replicas re-mirror the new geometry."""
         old_capacity = self.state.capacity
         self._cache = None
-        t0 = time.perf_counter()
-        self.state = rotate_arena(self.state, n_base=self.n_base,
-                                  extra=self.k_cap,
-                                  headroom=self.rotate_headroom)
-        self._sync()
-        dt_ms = (time.perf_counter() - t0) * 1e3
+        with RECORDER.span("cf_server.rotate", device=self._cuda) as span:
+            self.state = rotate_arena(self.state, n_base=self.n_base,
+                                      extra=self.k_cap,
+                                      headroom=self.rotate_headroom)
+            self._sync()
+        dt_ms = span.ms
         self.n_base = self.state.n_active
         self._retarget()
         self.stats.rotations += 1
@@ -614,9 +649,9 @@ class CFServer:
         budget = (int(budget_rows) if budget_rows is not None
                   else self._rcfg.budget_rows)
         if not self._plan.done:
-            t0 = time.perf_counter()
-            self._plan.step(self.state, budget)       # ends in a sync
-            self.stats.plan_step_ms.append((time.perf_counter() - t0) * 1e3)
+            with RECORDER.span("cf_server.plan_step") as span:
+                self._plan.step(self.state, budget)   # ends in a sync
+            self.stats.plan_step_ms.append(span.ms)
             self._crashpoint("rotation.step")
         if self._plan.done:
             self._swap_rotation()
@@ -650,13 +685,14 @@ class CFServer:
         # Dropped at the install anyway; dropping it first keeps the dots
         # cache off the card while the new arena is assembled.
         self._cache = None
-        t0 = time.perf_counter()
-        self._log("rotate_commit", fields={"n_base": plan.n_base,
-                                           "n_frozen": plan.n_frozen,
-                                           "extra": plan.extra})
-        self._crashpoint("rotation.commit_post_wal")
-        new_state = plan.finalize(self.state)
-        pause_ms = (time.perf_counter() - t0) * 1e3
+        with RECORDER.span("cf_server.rotation_pause",
+                           device=self._cuda) as span:
+            self._log("rotate_commit", fields={"n_base": plan.n_base,
+                                               "n_frozen": plan.n_frozen,
+                                               "extra": plan.extra})
+            self._crashpoint("rotation.commit_post_wal")
+            new_state = plan.finalize(self.state)
+        pause_ms = span.ms
         self._install_rotated(new_state, n_base=plan.n_frozen)
         self._plan = None
         self.stats.rotations += 1
@@ -682,7 +718,8 @@ class CFServer:
         pending incremental rotation (defaults to the configured
         per-onboard budget), so rotations finish between bursts instead of
         inside them."""
-        self._maintenance_tick(budget_rows)
+        with RECORDER.request("cf_server.step_maintenance"):
+            self._maintenance_tick(budget_rows)
         plan = self._plan
         return {"active": plan is not None,
                 "remaining_rows": plan.remaining_rows if plan else 0,
@@ -697,29 +734,29 @@ class CFServer:
         op is applied — the write-ahead contract."""
         self._seq += 1
         if self.wal is not None and not self._replaying:
-            t0 = time.perf_counter()
-            self.wal.append(self._seq, op, fields, arrays)
-            self.stats.wal_append_ms.append((time.perf_counter() - t0) * 1e3)
+            with RECORDER.span("cf_server.wal_append") as span:
+                self.wal.append(self._seq, op, fields, arrays)
+            self.stats.wal_append_ms.append(span.ms)
             self.stats.wal_appends += 1
         return self._seq
 
     def _take_snapshot(self) -> None:
         # Drop the old snapshot first: two full clones need not coexist.
         self._snapshot = None
-        self._snapshot = (clone_state(self.state), self.n_base,
-                          self._gen.get_state(), self._seq)
+        with RECORDER.span("cf_server.snapshot", device=self._cuda):
+            self._snapshot = (clone_state(self.state), self.n_base,
+                              self._gen.get_state(), self._seq)
         self.stats.snapshots += 1
         self._since_snapshot = 0
         if self.snapshot_dir is not None:
-            t0 = time.perf_counter()
-            checkpoint.save(self.snapshot_dir, self._seq, self.state,
-                            extra={"n_base": self.n_base,
-                                   GENERATOR_KEY:
-                                       self._gen.get_state().tolist(),
-                                   "wal_seq": self._seq},
-                            keep_last=self.snapshot_keep)
-            self.stats.snapshot_save_ms.append(
-                (time.perf_counter() - t0) * 1e3)
+            with RECORDER.span("cf_server.snapshot_save") as span:
+                checkpoint.save(self.snapshot_dir, self._seq, self.state,
+                                extra={"n_base": self.n_base,
+                                       GENERATOR_KEY:
+                                           self._gen.get_state().tolist(),
+                                       "wal_seq": self._seq},
+                                keep_last=self.snapshot_keep)
+            self.stats.snapshot_save_ms.append(span.ms)
             if self.wal is not None:
                 # The checkpoint subsumes every logged op; drop them.  The
                 # dots cache is re-seeded at this boundary so a replayed
@@ -865,8 +902,9 @@ class CFServer:
 
     def _healthy(self) -> bool:
         st = self.state
-        return bool(arena_healthy(st.sim_vals, st.ratings, st.norms,
-                                  st.n_active))
+        with RECORDER.span("cf_server.health"):
+            return bool(arena_healthy(st.sim_vals, st.ratings, st.norms,
+                                      st.n_active))
 
     def _state_ok(self) -> bool:
         """Verify the arena invariant; heal poisoned rows from replicas
@@ -917,9 +955,15 @@ class CFServer:
 
     def onboard_user(self, ratings: np.ndarray, *,
                      use_twinsearch: bool = True) -> OnboardResult:
-        reason = guard.validate_ratings_vector(
-            ratings, n_items=self.state.n_items,
-            rating_range=self.rating_range)
+        with RECORDER.request("cf_server.onboard_user"):
+            return self._onboard_user(ratings, use_twinsearch)
+
+    def _onboard_user(self, ratings: np.ndarray,
+                      use_twinsearch: bool) -> OnboardResult:
+        with RECORDER.span("cf_server.guard"):
+            reason = guard.validate_ratings_vector(
+                ratings, n_items=self.state.n_items,
+                rating_range=self.rating_range)
         if reason is not None:
             self._reject("onboard", reason, ratings)
             return OnboardResult(status="rejected", reason=reason,
@@ -954,8 +998,9 @@ class CFServer:
                 self._crashpoint("rotate.post_wal")
                 self._rotate()
 
-        r0_np = np.asarray(ratings, dtype=np.float32)
-        r0 = torch.as_tensor(r0_np, device=self.device)
+        with RECORDER.span("cf_server.upload"):
+            r0_np = np.asarray(ratings, dtype=np.float32)
+            r0 = torch.as_tensor(r0_np, device=self.device)
         use_twin = use_twinsearch and self.level == LEVEL_TWINSEARCH
         if use_twin:
             probes = self._draw_probes()
@@ -990,10 +1035,10 @@ class CFServer:
                   else dataclasses.replace(self.retry,
                                            on_wait=self._drain_during_wait))
         self.monitor.step_started()
-        t0 = time.perf_counter()
         try:
-            (new_state, found, overflowed), retries = guard.call_with_retry(
-                run, policy)
+            with RECORDER.span("cf_server.compute") as compute:
+                (new_state, found, overflowed), retries = \
+                    guard.call_with_retry(run, policy)
         except Exception as e:          # noqa: BLE001 — contract: no raise
             self.monitor.step_finished()
             self.stats.errors += 1
@@ -1006,11 +1051,12 @@ class CFServer:
             return OnboardResult(status="error", reason=guard.R_ERROR,
                                  rung=LEVEL_NAMES[self.level],
                                  rotated=rotated, seq=seq, detail=repr(e))
-        dt_ms = (time.perf_counter() - t0) * 1e3
+        dt_ms = compute.ms
         self._apply_monitor(self.monitor.step_finished())
 
         self.stats.retries += retries
-        self._commit_onboard(new_state, found, overflowed)
+        with RECORDER.span("cf_server.commit"):
+            self._commit_onboard(new_state, found, overflowed)
         self.stats.onboard_ms.append(dt_ms)
         self._crashpoint("onboard.post_commit")
 
@@ -1069,6 +1115,11 @@ class CFServer:
         id is quarantined and its slot answers ``[]``.  Rows whose (top-k
         sims, neighbour ids, own ratings) keys are bitwise identical are
         scored once and fanned out."""
+        with RECORDER.request("cf_server.recommend_batch"):
+            return self._recommend_batch(users, n, k_neighbors)
+
+    def _recommend_batch(self, users, n: int, k_neighbors: int
+                         ) -> list[list[tuple[int, float]]]:
         users = list(users)
         results: list[list[tuple[int, float]]] = [[] for _ in users]
         valid = [i for i, u in enumerate(users)
@@ -1078,38 +1129,47 @@ class CFServer:
             return results
         self._pre_query()
         k_eff = self._query_k(k_neighbors)
-        t0 = time.perf_counter()
 
-        uvec = torch.as_tensor([int(users[i]) for i in valid],
-                               device=self.device)
-        sims, nbrs = knn.top_k_neighbors_batch(self.state, uvec, k_eff)
-        nbrs = nbrs.to(torch.int32)
-        rows = self.state.ratings[uvec]
+        with RECORDER.span("knn.top_k") as top:
+            uvec = torch.as_tensor([int(users[i]) for i in valid],
+                                   device=self.device)
+            sims, nbrs = knn.top_k_neighbors_batch(self.state, uvec, k_eff)
+            nbrs = nbrs.to(torch.int32)
+            rows = self.state.ratings[uvec]
         # Twin dedup: the scoring kernel is a deterministic function of
         # exactly (sims, nbrs, own row), so equal keys share scores.
-        keys = np.concatenate([sims.cpu().numpy().view(np.uint32),
-                               nbrs.cpu().numpy().view(np.uint32),
-                               rows.cpu().numpy().view(np.uint32)], axis=1)
-        plan = dedup_rows(keys)
-        sel = torch.as_tensor(plan.unique_rows, device=self.device)
-        scores, items = knn_recommend_topn(
-            self.state.ratings, torch.clamp_min(sims[sel], 0.0), nbrs[sel],
-            uvec[sel], n)
-        scores, items = scores.cpu().numpy(), items.cpu().numpy()
+        with RECORDER.span("dedup.keys"):
+            keys = np.concatenate([sims.cpu().numpy().view(np.uint32),
+                                   nbrs.cpu().numpy().view(np.uint32),
+                                   rows.cpu().numpy().view(np.uint32)],
+                                  axis=1)
+        with RECORDER.span("dedup.hash"):
+            plan = dedup_rows(keys)
+        with RECORDER.span("knn.score") as score:
+            sel = torch.as_tensor(plan.unique_rows, device=self.device)
+            scores, items = knn_recommend_topn(
+                self.state.ratings, torch.clamp_min(sims[sel], 0.0),
+                nbrs[sel], uvec[sel], n)
+            scores, items = scores.cpu().numpy(), items.cpu().numpy()
 
-        dt_ms = (time.perf_counter() - t0) * 1e3
-        for pos, i in enumerate(valid):
-            u = int(plan.scatter[pos])
-            results[i] = [(int(it), float(s))
-                          for s, it in zip(scores[u], items[u])]
+        with RECORDER.span("cf_server.fan_out"):
+            for pos, i in enumerate(valid):
+                u = int(plan.scatter[pos])
+                results[i] = [(int(it), float(s))
+                              for s, it in zip(scores[u], items[u])]
         self._note_query_batch(len(valid), plan.n_unique, plan.savings,
-                               dt_ms, degraded=k_eff != int(k_neighbors))
+                               _between_ms(top, score),
+                               degraded=k_eff != int(k_neighbors))
         return results
 
     def predict_batch(self, users, items, k: int = 20) -> list[float]:
         """kNN rating predictions for B (user, item) pairs; invalid rows
         are quarantined and answer 0.0.  Twin dedup keys on (top-k sims,
         neighbour ids, item)."""
+        with RECORDER.request("cf_server.predict_batch"):
+            return self._predict_batch(users, items, k)
+
+    def _predict_batch(self, users, items, k: int) -> list[float]:
         users, items = list(users), list(items)
         if len(users) != len(items):
             raise ValueError(f"{len(users)} users but {len(items)} items")
@@ -1126,27 +1186,32 @@ class CFServer:
             return results
         self._pre_query()
         k_eff = self._query_k(k)
-        t0 = time.perf_counter()
 
-        uvec = torch.as_tensor([int(users[i]) for i in valid],
-                               device=self.device)
-        ivec = np.asarray([int(items[i]) for i in valid], np.int32)
-        sims, nbrs = knn.top_k_neighbors_batch(self.state, uvec, k_eff)
-        nbrs = nbrs.to(torch.int32)
-        keys = np.concatenate([sims.cpu().numpy().view(np.uint32),
-                               nbrs.cpu().numpy().view(np.uint32),
-                               ivec.reshape(-1, 1).view(np.uint32)], axis=1)
-        plan = dedup_rows(keys)
-        sel = torch.as_tensor(plan.unique_rows, device=self.device)
-        preds = knn.predict_from_neighbors(
-            self.state, sims[sel], nbrs[sel].long(),
-            torch.as_tensor(ivec, device=self.device)[sel]).cpu().numpy()
+        with RECORDER.span("knn.top_k") as top:
+            uvec = torch.as_tensor([int(users[i]) for i in valid],
+                                   device=self.device)
+            ivec = np.asarray([int(items[i]) for i in valid], np.int32)
+            sims, nbrs = knn.top_k_neighbors_batch(self.state, uvec, k_eff)
+            nbrs = nbrs.to(torch.int32)
+        with RECORDER.span("dedup.keys"):
+            keys = np.concatenate([sims.cpu().numpy().view(np.uint32),
+                                   nbrs.cpu().numpy().view(np.uint32),
+                                   ivec.reshape(-1, 1).view(np.uint32)],
+                                  axis=1)
+        with RECORDER.span("dedup.hash"):
+            plan = dedup_rows(keys)
+        with RECORDER.span("knn.predict") as score:
+            sel = torch.as_tensor(plan.unique_rows, device=self.device)
+            preds = knn.predict_from_neighbors(
+                self.state, sims[sel], nbrs[sel].long(),
+                torch.as_tensor(ivec, device=self.device)[sel]).cpu().numpy()
 
-        dt_ms = (time.perf_counter() - t0) * 1e3
-        for pos, i in enumerate(valid):
-            results[i] = float(preds[int(plan.scatter[pos])])
+        with RECORDER.span("cf_server.fan_out"):
+            for pos, i in enumerate(valid):
+                results[i] = float(preds[int(plan.scatter[pos])])
         self._note_query_batch(len(valid), plan.n_unique, plan.savings,
-                               dt_ms, degraded=k_eff != int(k))
+                               _between_ms(top, score),
+                               degraded=k_eff != int(k))
         return results
 
     def recommend(self, user: int, n: int = 10,
@@ -1164,10 +1229,10 @@ class CFServer:
                           rating: float) -> None:
         n_act = self.state.n_active
         if self._cache is None:
-            t0 = time.perf_counter()
-            self._cache = self._init_cache(self.state.ratings)
-            self._sync()
-            self.stats.cache_init_ms.append((time.perf_counter() - t0) * 1e3)
+            with RECORDER.span("cf_server.cache_init") as span:
+                self._cache = self._init_cache(self.state.ratings)
+                self._sync()
+            self.stats.cache_init_ms.append(span.ms)
         elif self._cache_rows < n_act:
             # Users onboarded since the cache was built (the reference
             # leaves their rows at 0 here: see ``_cache_rows``).
@@ -1187,6 +1252,10 @@ class CFServer:
         """Returns True iff the update was applied (False = quarantined).
         An applied update is on the arena when the call returns (its time,
         WAL append included, is ``ServerStats.add_rating_ms``)."""
+        with RECORDER.request("cf_server.add_rating"):
+            return self._add_rating(user, item, rating)
+
+    def _add_rating(self, user: int, item: int, rating: float) -> bool:
         if guard.validate_user_id(user, self.state.n_active):
             self._reject("add_rating", guard.R_USER_ID, user)
             return False
@@ -1199,12 +1268,13 @@ class CFServer:
             return False
         self._replication_tick()
         self._crashpoint("add_rating.pre_wal")
-        t0 = time.perf_counter()
-        self._log("add_rating", fields={"user": int(user), "item": int(item),
-                                        "rating": float(rating)})
-        self._crashpoint("add_rating.post_wal")
-        self._apply_add_rating(int(user), int(item), float(rating))
-        self._sync()
-        self.stats.add_rating_ms.append((time.perf_counter() - t0) * 1e3)
+        with RECORDER.span("cf_server.apply_rating") as span:
+            self._log("add_rating", fields={"user": int(user),
+                                            "item": int(item),
+                                            "rating": float(rating)})
+            self._crashpoint("add_rating.post_wal")
+            self._apply_add_rating(int(user), int(item), float(rating))
+            self._sync()
+        self.stats.add_rating_ms.append(span.ms)
         self._crashpoint("add_rating.post_commit")
         return True
