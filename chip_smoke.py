@@ -12,7 +12,11 @@ Phases, in order; the script exits non-zero as soon as a check fails:
                path's shapes (plus a ragged small case), timed with CUDA
                events beside its bound and a library yardstick;
                ``similarity`` at nq = 64 and at the burst's nq = 32 (one
-               tile variant each), and bit for bit on integer ratings.
+               tile variant each), and bit for bit on integer ratings;
+               ``key_dedup`` on a 32-user read batch's keys (7 repeats),
+               against its plain version and ``dedup_rows``' plan, timed
+               beside its bound, the plain version and the host route it
+               replaces.
   4. server  — ``CFServer`` at Douban-film width (58,541 items at
                douban_film's density, 32,768 users): build, 48 planted
                twins + 16 fresh profiles into the 64-slot write buffer, one
@@ -20,7 +24,8 @@ Phases, in order; the script exits non-zero as soon as a check fails:
                ``predict_batch`` for 256 users, and a 32-user traditional
                burst on a clone of the state.  The launch counts are
                zeroed just before and read just after: every kernel of the
-               path (similarity, list_merge, knn_score) must have run.
+               path (similarity, list_merge, knn_score, key_dedup) must
+               have run.
   5. kernel API — ``repro_torch.kernels.twin_probe``, ``verify_rows`` and
                ``embedding_bag`` at shapes the system runs: the 8 probe
                rows of the server's final arena in user order (a planted
@@ -134,7 +139,7 @@ Phases, in order; the script exits non-zero as soon as a check fails:
                (d) OLMoE-1B-7B serving 8 prompts of 1,024 tokens (4
                distinct), 16 new tokens, and its first 2 layers against the
                host.  Counts zeroed before, read after: the LM path
-               launches none of the six kernels.  Prints ``{"lm": {...}}``.
+               launches none of the seven kernels.  Prints ``{"lm": {...}}``.
  11b. MoE-EP  — OLMoE-1B-7B on a (1, 1) mesh over a one-rank NCCL group,
                where the reference's rule routes every train and prefill
                MoE layer through ``models.moe_ep``: the hooks' ``moe_ep``
@@ -147,7 +152,7 @@ Phases, in order; the script exits non-zero as soon as a check fails:
                batch 8 of 256; 2 AdamW steps, finite losses, peak within
                70 GB), each timed by CUDA events and once under the
                profiler, every ``moe_ffn_ep`` call counted.  Counts zeroed
-               before, read after: the path launches none of the six
+               before, read after: the path launches none of the seven
                kernels.  Prints ``{"moe_ep": {...}}``.
  12. GNN family — the four ``gat-cora`` cells through ``steps.build_cell``
                at their registered sizes, seeded random weights, host data
@@ -167,7 +172,7 @@ Phases, in order; the script exits non-zero as soon as a check fails:
                2**22 edges plus self-loops), within the bounds PERF.md
                states; one step under the profiler (not molecule).  Counts
                zeroed before, read after: the GNN path launches none of the
-               six kernels.  Prints ``{"gnn": {...}}``.
+               seven kernels.  Prints ``{"gnn": {...}}``.
  12b. roofline — (a) ``python -m repro_torch.launch.dryrun --all`` in a
                subprocess that sees no card (``CUDA_VISIBLE_DEVICES=""``):
                88 records, 82 ok and 6 skipped (long_500k of gemma-7b,
@@ -186,9 +191,9 @@ Phases, in order; the script exits non-zero as soon as a check fails:
  13. movielens — the same request script at 943 x 1,682 on the card and on
                the CPU (the plain versions), held to the parity tests'
                tolerances.
- 14. summary — ``{"kernels": [...]}`` (all six kernels, each with the
+ 14. summary — ``{"kernels": [...]}`` (all seven kernels, each with the
                launches of the phases that drove it: 4, 6, 7, 8 and 9 for
-               the main path's three, 5 for the others, 10 for
+               the main path's four, 5 for the others, 10 for
                ``embedding_bag``, and 12b for ``similarity`` and
                ``embedding_bag``; phases 11, 11b and 12 launch none), the
                nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
@@ -224,6 +229,7 @@ DEVICE = "cuda"
 MERGE_SHAPE = (N_USERS, N_USERS + 2 * CAPACITY_EXTRA, CAPACITY_EXTRA)
 SIM_NQS = (64, 32)               # the 64-row tile; the server's burst
 KNN_B, KNN_K = 256, 20
+DEDUP_B, DEDUP_REPEATS = 32, 7   # the read cell's batch, its twin share
 BURST = 32
 # Phase 6: rotation slices of 4,096 base rows (8 slices for 32,768 rows); a
 # checkpoint every 32 onboards (one mid-run, before the plan starts); 32
@@ -232,7 +238,7 @@ DUR_BUDGET_ROWS, DUR_SNAPSHOT_EVERY, DUR_ADDS = 4096, 32, 32
 # Phase 7: 4 shards, 2 copies each, re-replication 4,096 rows a request; 12
 # onboards before node 1 dies.
 REP_SHARDS, REP_R, REP_REBUILD_ROWS, REP_ONBOARDS = 4, 2, 4096, 12
-MAIN_PATH = ("similarity", "list_merge", "knn_score")
+MAIN_PATH = ("similarity", "list_merge", "knn_score", "key_dedup")
 API_KERNELS = ("twin_probe", "verify_rows", "embedding_bag")
 # xDeepFM's table and traffic come from ``repro_torch.configs`` (39
 # power-law fields, 60,802,963 rows in all, the first 10M; 10 columns;
@@ -571,6 +577,93 @@ def check_knn_score(torch, dev, arena) -> dict:
             "max_abs_err": 0.0 if same else float("inf"), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "shape": [B, k, N, m]}
+
+
+def check_key_dedup(torch, dev, arena) -> dict:
+    """The read path's twin dedup at Douban width: a batch of ``DEDUP_B``
+    users, ``DEDUP_REPEATS`` of them repeats, keyed on 20 sims (a slice of
+    a wider sort, as the top-k leaves them), 20 neighbour ids and each
+    user's row read in the arena.  Both launches against the plain
+    version and the plan against ``dedup_rows`` over the same keys on the
+    host.  Timed cold (an L2 flush before each call, which also keeps the
+    stream busy while the host enqueues, so the events time the card's
+    work: one call's host time exceeds its device time), the pair and
+    each launch alone, beside the bound (with the compares the batch
+    needs, one a repeat) and the launch floor; the plain version on the
+    card; the host's time a call (launches, the copy of the answer, the
+    plan) and the host route the kernel replaces (the keys' copies,
+    ``dedup_rows``)."""
+    import numpy as np
+    from repro_torch.kernels.key_dedup import ops
+    from repro_torch.kernels.key_dedup.kernel import cost
+    from repro_torch.kernels.key_dedup.ref import (key_words, probe_ref,
+                                                   verify_ref)
+    from repro_torch.serving.cf_server import plan_of_first
+    from repro_torch.serving.dedup import dedup_rows
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    m = arena.shape[1]
+    B, k, n = DEDUP_B, KNN_K, DEDUP_B - DEDUP_REPEATS
+    which = torch.cat([torch.arange(n, device=dev),
+                       torch.arange(DEDUP_REPEATS, device=dev)])
+    which = which[torch.randperm(B, device=dev, generator=g)]
+    users = torch.randperm(N_USERS, device=dev, generator=g)[:n][which]
+    wide = torch.sort(torch.rand((n, 64), device=dev, generator=g),
+                      dim=1, descending=True).values[which]
+    nbrs = torch.randint(0, N_USERS, (n, k), device=dev, generator=g,
+                         dtype=torch.int32)[which]
+    key = (wide[:, :k], nbrs, arena, users)
+
+    def host_route():
+        keys = np.concatenate([key[0].cpu().numpy().view(np.uint32),
+                               nbrs.cpu().numpy().view(np.uint32),
+                               arena[users].cpu().numpy().view(np.uint32)],
+                              axis=1)
+        return dedup_rows(keys)
+
+    hashes = ops.probe(*key)
+    first = ops.verify(*key, hashes)
+    words = key_words(*key)
+    plan, want = plan_of_first(first), host_route()
+    same = (torch.equal(hashes, probe_ref(words))
+            and torch.equal(first, verify_ref(words, hashes))
+            and np.array_equal(plan.unique_rows, want.unique_rows)
+            and np.array_equal(plan.scatter, want.scatter))
+    check(same and plan.n_unique == n,
+          f"key_dedup (B={B}, {k} + {k} + {m} words) hashes and answer "
+          f"equal to the plain version's, plan equal to dedup_rows' "
+          f"({plan.n_unique} unique)")
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+    one = torch.empty(1, device=dev)
+    floor_ms = cold_ms(lambda: one.fill_(1.0), 20, scratch.zero_)
+    ms = cold_ms(lambda: ops.first_twins(*key), 20, scratch.zero_)
+    probe_ms = cold_ms(lambda: ops.probe(*key), 20, scratch.zero_)
+    verify_ms = cold_ms(lambda: ops.verify(*key, hashes), 20, scratch.zero_)
+    del scratch
+    host_ms = call_ms(lambda: plan_of_first(ops.first_twins(*key)),
+                      reps=200)
+    plain_ms = cuda_ms(lambda: verify_ref(key_words(*key),
+                                          probe_ref(key_words(*key))),
+                       reps=3)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        host_route()
+    route_ms = (time.perf_counter() - t0) * 1e3 / 3
+    c = cost(B, 2 * k + m, pairs=B - n)
+    b_ms, b_by = bound(c.bytes, c.flops)
+    log(f"  key_dedup (B={B}, W={2 * k + m}, {B - n} repeats), cold: "
+        f"kernel {ms:.4f} ms (probe {probe_ms:.4f}, verify "
+        f"{verify_ms:.4f}), launch floor {floor_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}); host {host_ms:.4f} ms a call; plain "
+        f"{plain_ms:.3f} ms; host route {route_ms:.1f} ms")
+    return {"name": "key_dedup", "route": "cuda",
+            "source": "src/repro_torch/csrc/key_dedup.cu",
+            "replaces": "none (serving/dedup.py::dedup_rows on the host)",
+            "max_abs_err": 0.0, "ms": ms, "probe_ms": probe_ms,
+            "verify_ms": verify_ms, "launch_floor_ms": floor_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "host_call_ms": host_ms,
+            "host_route_ms": route_ms,
+            "shape": [B, 2 * k + m]}
 
 
 # ---------------------------------------------------------------------------
@@ -3182,7 +3275,7 @@ def run_lm(torch, dev) -> dict:
     (c) its four reference cells through ``steps.build_cell``, (d)
     OLMoE-1B-7B served and held to the host on its first two layers.
     Launch counts zeroed at the start and read at the end: the LM path
-    launches none of the six kernels."""
+    launches none of the seven kernels."""
     import dataclasses
     from repro_torch.configs import get_arch
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -3242,7 +3335,7 @@ def run_lm(torch, dev) -> dict:
 
     counts = launch_counts()
     check(not any(counts.values()),
-          f"the LM path launched none of the six kernels ({counts}); the "
+          f"the LM path launched none of the seven kernels ({counts}); the "
           "kernels line does not count this phase")
     metrics["kernel_launches"] = counts
     metrics["cuts"] = {
@@ -3483,7 +3576,7 @@ def run_moe_ep(torch, dev) -> dict:
     ``models.moe_ep``: the hooks checked, ``moe_ffn_ep`` held to ``moe_ffn``
     on one layer, then prefill_32k and train_4k, each ``moe_ffn_ep`` call
     counted.  Launch counts zeroed at the start and read at the end: the
-    path launches none of the six kernels."""
+    path launches none of the seven kernels."""
     from repro_torch.configs import get_arch
     from repro_torch.distributed import sharding as shd
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -3523,7 +3616,7 @@ def run_moe_ep(torch, dev) -> dict:
         lm.moe_ffn_ep = real
     counts = launch_counts()
     check(not any(counts.values()),
-          f"the MoE-EP path launched none of the six kernels ({counts}); "
+          f"the MoE-EP path launched none of the seven kernels ({counts}); "
           "the kernels line does not count this phase")
     metrics["kernel_launches"] = counts
     metrics["cuts"] = {
@@ -3795,7 +3888,7 @@ def run_gnn(torch, dev) -> dict:
     ``steps.build_cell`` on a (1, 1) mesh over a one-rank NCCL process
     group (the ``train_full`` ones run its collectives).  Launch counts
     zeroed at the start and read at the end: the GNN path launches none
-    of the six kernels."""
+    of the seven kernels."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.mesh import one_rank_mesh
@@ -3810,7 +3903,7 @@ def run_gnn(torch, dev) -> dict:
             metrics[shape.name] = gnn_cell(torch, dev, spec, shape, mesh)
     counts = launch_counts()
     check(not any(counts.values()),
-          f"the GNN path launched none of the six kernels ({counts}); the "
+          f"the GNN path launched none of the seven kernels ({counts}); the "
           "kernels line does not count this phase")
     metrics["kernel_launches"] = counts
     metrics["host_data_s"] = sum(m["data_s"] for m in metrics.values()
@@ -4135,6 +4228,7 @@ def main() -> int:
         arena[:N_USERS] = torch.as_tensor(R_host, device=dev)
         entries["similarity"] = check_similarity(torch, dev, arena, R_host)
         entries["knn_score"] = check_knn_score(torch, dev, arena)
+        entries["key_dedup"] = check_key_dedup(torch, dev, arena)
         del arena
         torch.cuda.empty_cache()
 

@@ -13,6 +13,9 @@
                  replaces ``merge_insert_pallas``)
   knn_score/     batched kNN item scoring by neighbour gather (the read
                  path; replaces ``knn_scores_pallas``)
+  key_dedup/     twin dedup of the read path's keys on the card, a probe
+                 hash then an exact verify (replaces no Pallas kernel:
+                 ``serving/dedup.py``'s host route on the CF read path)
 
 ``kernel.py`` binds ``csrc/<name>.cu``, ``ref.py`` holds the plain
 version, and ``ops.py`` dispatches: the kernel for CUDA tensors, the plain

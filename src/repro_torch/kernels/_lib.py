@@ -172,8 +172,9 @@ LIST_MERGE = Kernel("list_merge")
 TWIN_PROBE = Kernel("twin_probe")
 VERIFY_ROWS = Kernel("verify_rows")
 EMBEDDING_BAG = Kernel("embedding_bag")
+KEY_DEDUP = Kernel("key_dedup")
 KERNELS = {k.name: k for k in (SIMILARITY, KNN_SCORE, LIST_MERGE, TWIN_PROBE,
-                               VERIFY_ROWS, EMBEDDING_BAG)}
+                               VERIFY_ROWS, EMBEDDING_BAG, KEY_DEDUP)}
 
 
 def build_all() -> dict[str, str]:

@@ -121,11 +121,12 @@ from repro_torch.core.rotation import (RotationPlan, rotate_arena,
 from repro_torch.core.types import (CFState, clone_state, require_device,
                                     set0_cap)
 from repro_torch.distributed.replication import ReplicatedArena
+from repro_torch.kernels.key_dedup import ops as key_dedup
 from repro_torch.kernels.knn_score.ops import knn_recommend_topn
 from repro_torch.kernels.verify_rows.ops import arena_healthy
 from repro_torch.serving import guard
 from repro_torch.serving.config import ServerConfig
-from repro_torch.serving.dedup import dedup_rows
+from repro_torch.serving.dedup import DedupPlan
 from repro_torch.serving.wal import WriteAheadLog
 from repro_torch.spans import RECORDER
 from repro_torch.training import checkpoint
@@ -149,6 +150,20 @@ SHED_QUERY_K_DIV = 4
 
 # The checkpoint ``extra`` key of the probe generator's state.
 GENERATOR_KEY = "torch_generator_state"
+
+
+def plan_of_first(first: torch.Tensor) -> DedupPlan:
+    """The twin-dedup plan of a batch from ``first``, each row's first row
+    with an identical key (``kernels.key_dedup``), copied to the host:
+    the rows that are their own first, in order, and each row's rank of
+    its first among them.  ``serving.dedup.dedup_rows`` keeps first
+    occurrences and scatters to them in the same way, so both give the
+    same plan for the same keys."""
+    first = first.cpu().numpy()
+    own = first == np.arange(len(first))
+    rank = np.cumsum(own) - 1
+    return DedupPlan(unique_rows=np.flatnonzero(own), scatter=rank[first],
+                     n_unique=int(own.sum()))
 
 
 def _between_ms(first, last) -> float:
@@ -1135,16 +1150,15 @@ class CFServer:
                                    device=self.device)
             sims, nbrs = knn.top_k_neighbors_batch(self.state, uvec, k_eff)
             nbrs = nbrs.to(torch.int32)
-            rows = self.state.ratings[uvec]
         # Twin dedup: the scoring kernel is a deterministic function of
-        # exactly (sims, nbrs, own row), so equal keys share scores.
+        # exactly (sims, nbrs, own row), so equal keys share scores.  The
+        # keys are read where they lie (the own row in the arena); only
+        # the (B,) answer comes back.
+        key = (sims, nbrs, self.state.ratings, uvec)
         with RECORDER.span("dedup.keys"):
-            keys = np.concatenate([sims.cpu().numpy().view(np.uint32),
-                                   nbrs.cpu().numpy().view(np.uint32),
-                                   rows.cpu().numpy().view(np.uint32)],
-                                  axis=1)
+            hashes = key_dedup.probe(*key)
         with RECORDER.span("dedup.hash"):
-            plan = dedup_rows(keys)
+            plan = plan_of_first(key_dedup.verify(*key, hashes))
         with RECORDER.span("knn.score") as score:
             sel = torch.as_tensor(plan.unique_rows, device=self.device)
             scores, items = knn_recommend_topn(
@@ -1190,21 +1204,20 @@ class CFServer:
         with RECORDER.span("knn.top_k") as top:
             uvec = torch.as_tensor([int(users[i]) for i in valid],
                                    device=self.device)
-            ivec = np.asarray([int(items[i]) for i in valid], np.int32)
+            ivec = torch.as_tensor([int(items[i]) for i in valid],
+                                   dtype=torch.int32, device=self.device)
             sims, nbrs = knn.top_k_neighbors_batch(self.state, uvec, k_eff)
             nbrs = nbrs.to(torch.int32)
+        key = (sims, nbrs, ivec.view(-1, 1), None)
         with RECORDER.span("dedup.keys"):
-            keys = np.concatenate([sims.cpu().numpy().view(np.uint32),
-                                   nbrs.cpu().numpy().view(np.uint32),
-                                   ivec.reshape(-1, 1).view(np.uint32)],
-                                  axis=1)
+            hashes = key_dedup.probe(*key)
         with RECORDER.span("dedup.hash"):
-            plan = dedup_rows(keys)
+            plan = plan_of_first(key_dedup.verify(*key, hashes))
         with RECORDER.span("knn.predict") as score:
             sel = torch.as_tensor(plan.unique_rows, device=self.device)
             preds = knn.predict_from_neighbors(
                 self.state, sims[sel], nbrs[sel].long(),
-                torch.as_tensor(ivec, device=self.device)[sel]).cpu().numpy()
+                ivec[sel]).cpu().numpy()
 
         with RECORDER.span("cf_server.fan_out"):
             for pos, i in enumerate(valid):

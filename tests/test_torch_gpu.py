@@ -11,7 +11,10 @@ Tolerances: ``similarity`` within 1e-5 (f32, the bound of
 outputs are cosines, at most 1 in magnitude: only the order of the fp32
 sums differs), bit for bit on integer ratings in both dtypes; ``knn_score``, ``embedding_bag`` and
 ``list_merge`` bit-for-bit (same serial order; pure data movement);
-``twin_probe`` and ``verify_rows`` exactly (masks, counts and flags).  The
+``twin_probe`` and ``verify_rows`` exactly (masks, counts and flags);
+``key_dedup`` exactly (hashes bit for bit, answers, and the plan equal to
+``dedup_rows``' over the same keys on the host, forced collisions
+included).  The
 write path: ``RotationPlan.finalize`` bit-identical to
 ``rotate_arena_frozen`` on the card; ``add_rating`` on the card
 bit-identical to the CPU plain path (integer ratings: every dot is an exact
@@ -51,6 +54,9 @@ from repro_torch.core import knn, similarity
 from repro_torch.kernels import (embedding_bag, launch_counts, twin_probe,
                                  verify_rows)
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.kernels.key_dedup import ops as key_dedup
+from repro_torch.kernels.key_dedup.kernel import verify_cuda
+from repro_torch.kernels.key_dedup.ref import key_words, probe_ref, verify_ref
 from repro_torch.kernels.knn_score.ops import knn_scores
 from repro_torch.kernels.knn_score.ref import knn_scores_ref
 from repro_torch.kernels.list_merge.ops import merge_insert
@@ -67,6 +73,8 @@ from repro_torch.core.types import SENTINEL
 from repro_torch.distributed import ReplicatedArena, ReplicationConfig
 from repro_torch.serving import (CFServer, RotationConfig, ServerConfig,
                                  SnapshotConfig, WalConfig)
+from repro_torch.serving.cf_server import plan_of_first
+from repro_torch.serving.dedup import dedup_rows
 from repro_torch.testing import (SimulatedCrash, forbid_similarity_kernels,
                                  install_crash, kill_replica)
 from repro_torch.training import checkpoint
@@ -298,6 +306,172 @@ def test_server_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(
         pc, knn.predict_batch(plain, users, [5] * len(users), 7).numpy(),
         atol=1e-6, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# key_dedup: the read path's twin dedup on the card, held to its plain
+# version (hashes bit for bit, answers exactly) and to ``dedup_rows``' plan
+# over the same keys on the host
+# ---------------------------------------------------------------------------
+
+def dedup_case(rng, B, k, N, m):
+    """(sims (B, k) f32, nbrs (B, k) int32, R (N, m) f32, users (B,) int64)
+    with twins planted: users 0 and 1 share a key; 2 differs from 0 only in
+    its rating row's last word (the key's last word), 3 only in the last
+    sim; users repeat (drawn from the first 12, 0-3 at least once each
+    when B >= 4)."""
+    S = rng.integers(0, 4, (N, k)).astype(np.float32) / 4
+    I = rng.integers(0, N, (N, k)).astype(np.int32)
+    R = (rng.integers(1, 6, (N, m)) * (rng.random((N, m)) < 0.05)
+         ).astype(np.float32)
+    S[1], I[1], R[1] = S[0], I[0], R[0]
+    S[2], I[2], R[2] = S[0], I[0], R[0]
+    R[2, -1] = R[0, -1] + 1.0
+    S[3], I[3], R[3] = S[0], I[0], R[0]
+    S[3, -1] = S[0, -1] + 0.25
+    users = rng.integers(0, min(N, 12), B)
+    users[:min(B, 4)] = np.arange(min(B, 4))[::-1]
+    rng.shuffle(users)
+    return (torch.as_tensor(S[users]), torch.as_tensor(I[users]),
+            torch.as_tensor(R), torch.as_tensor(users, dtype=torch.int64))
+
+
+def host_keys(sims, nbrs, third):
+    return np.concatenate([sims.numpy().view(np.uint32),
+                           nbrs.numpy().view(np.uint32),
+                           third.numpy().view(np.uint32)], axis=1)
+
+
+def assert_same_plan(got, want):
+    assert got.n_unique == want.n_unique
+    assert np.array_equal(got.unique_rows, want.unique_rows)
+    assert np.array_equal(got.scatter, want.scatter)
+    assert got.unique_rows.dtype == got.scatter.dtype == np.int64
+
+
+def _dedup_key(cuda, sims, nbrs, R, users):
+    """The key as ``recommend_batch`` hands it over: the sims a column
+    slice of a wider sort, the rows gathered from the arena by user id."""
+    wide = torch.zeros((sims.shape[0], sims.shape[1] + 13))
+    wide[:, :sims.shape[1]] = sims
+    return (wide.to(cuda)[:, :sims.shape[1]], nbrs.to(cuda), R.to(cuda),
+            users.to(cuda))
+
+
+@pytest.mark.parametrize("B", [1, 32, 256])
+@pytest.mark.parametrize("m", [58_541, 1001, 8153])
+def test_key_dedup_kernel_plan_is_dedup_rows_plan(cuda, B, m):
+    """Douban width, an odd width, and 8,153 items (a key of 8,193 words,
+    one word past a probe block's edge)."""
+    sims, nbrs, R, users = dedup_case(np.random.default_rng(B + m), B, 20,
+                                      64, m)
+    key = _dedup_key(cuda, sims, nbrs, R, users)
+    before = launch_counts()["key_dedup"]
+    hashes = key_dedup.probe(*key)
+    first = key_dedup.verify(*key, hashes)
+    torch.cuda.synchronize()
+    assert launch_counts()["key_dedup"] == before + 2
+    words = key_words(*key)
+    assert torch.equal(hashes, probe_ref(words))
+    assert torch.equal(first, verify_ref(words, hashes))
+    assert_same_plan(plan_of_first(first),
+                     dedup_rows(host_keys(sims, nbrs, R[users])))
+
+
+@pytest.mark.parametrize("B", [1, 32, 256])
+def test_key_dedup_kernel_predict_keys(cuda, B):
+    """(sims, ids, item): the third segment one word a row, not
+    gathered."""
+    sims, nbrs, _, users = dedup_case(np.random.default_rng(B), B, 20, 64, 5)
+    items = (users % 3).to(torch.int32).view(-1, 1)
+    key = (sims.to(cuda), nbrs.to(cuda), items.to(cuda), None)
+    hashes = key_dedup.probe(*key)
+    first = key_dedup.verify(*key, hashes)
+    words = key_words(*key)
+    assert torch.equal(hashes, probe_ref(words))
+    assert_same_plan(plan_of_first(first),
+                     dedup_rows(host_keys(sims, nbrs, items)))
+
+
+def test_key_dedup_kernel_signed_zero_and_nan_payloads(cuda):
+    """-0.0 is not 0.0 and NaNs with other payloads differ, in a sim and
+    in the rating row's last word; the same NaN bits are shared."""
+    bits = np.array([0x00000000, 0x80000000, 0x7FC00000, 0x7FC00001,
+                     0x7FC00000, 0x00000000], np.uint32)
+    col = torch.as_tensor(bits.view(np.float32).copy())
+    sims = torch.zeros((12, 20))
+    sims[:6, 7] = col
+    R = torch.ones((12, 58_541))
+    R[6:, -1] = col
+    users = torch.arange(12)
+    nbrs = torch.zeros((12, 20), dtype=torch.int32)
+    key = (sims.to(cuda), nbrs.to(cuda), R.to(cuda), users.to(cuda))
+    plan = plan_of_first(key_dedup.first_twins(*key))
+    want = dedup_rows(host_keys(sims, nbrs, R))
+    assert_same_plan(plan, want)
+    assert plan.scatter.tolist() == [0, 1, 2, 3, 2, 0, 4, 5, 6, 7, 6, 4]
+
+
+@pytest.mark.parametrize("B", [32, 256])
+def test_key_dedup_kernel_forced_collisions(cuda, B):
+    """The verify fed all-equal hashes compares every earlier key and
+    still shares only identical ones (near-twins differ in their last
+    word or their last sim)."""
+    sims, nbrs, R, users = dedup_case(np.random.default_rng(7 * B), B, 20,
+                                      64, 58_541)
+    key = _dedup_key(cuda, sims, nbrs, R, users)
+    zeros = torch.zeros(B, dtype=torch.int64, device=cuda)
+    first = verify_cuda(*key, zeros)
+    assert torch.equal(first, key_dedup.first_twins(*key))
+    assert_same_plan(plan_of_first(first),
+                     dedup_rows(host_keys(sims, nbrs, R[users])))
+
+
+def test_read_calls_dedup_on_card_in_two_launches(cuda):
+    """Each ``recommend_batch`` and ``predict_batch`` call launches the
+    dedup's probe and verify once each, and the card's server scores as
+    many unique rows as the CPU's."""
+    R = _ratings(np.random.default_rng(3), 120, 40)
+    users = [0, 5, 5, 17, 0, 119, 5, 3, 17]
+    stats = {}
+    for dev in ("cuda", "cpu"):
+        srv = CFServer(R, ServerConfig(capacity_extra=8), device=dev)
+        srv.onboard_user(R[5])           # a twin of user 5 joins
+        users_now = users + [srv.state.n_active - 1]
+        for call in (lambda: srv.recommend_batch(users_now, n=5,
+                                                 k_neighbors=7),
+                     lambda: srv.predict_batch(users_now, [4] * 10, k=7)):
+            before = launch_counts()["key_dedup"]
+            call()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                assert launch_counts()["key_dedup"] == before + 2
+        stats[dev] = (srv.stats.queries, srv.stats.query_unique)
+    assert stats["cuda"] == stats["cpu"]
+    assert stats["cuda"][1] < stats["cuda"][0]
+
+
+def test_key_dedup_counts_on_card_what_it_counts_on_meta(cuda):
+    """One dedup reports the pair's formula once, on the card as on
+    ``meta``, and launches twice."""
+    from repro_torch.launch.trace import Counter
+    sims, nbrs, R, users = dedup_case(np.random.default_rng(5), 33, 20, 64,
+                                      301)
+    args = (sims, nbrs, R, users)
+    card_args = [a.to(cuda) for a in args]
+    plain = key_dedup.first_twins(*card_args)
+    before = launch_counts()["key_dedup"]
+    with Counter() as card:
+        out = key_dedup.first_twins(*card_args)
+    torch.cuda.synchronize()
+    assert launch_counts()["key_dedup"] == before + 2
+    with Counter() as meta:
+        key_dedup.first_twins(*[a.to("meta") for a in args])
+    assert card.kernels == meta.kernels
+    assert card.kernels["key_dedup"]["calls"] == 1
+    assert (card.flops, card.flops_f32, card.bytes) == (
+        meta.flops, meta.flops_f32, meta.bytes)
+    assert torch.equal(out, plain)
 
 
 def _launched(name, fn, *args, **kwargs):

@@ -27,6 +27,8 @@ from repro_torch.bridge import state_from_numpy
 from repro_torch.kernels import (embedding_bag, launch_counts, twin_probe,
                                  verify_rows)
 from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda
+from repro_torch.kernels.key_dedup.kernel import probe_cuda, verify_cuda
+from repro_torch.kernels.key_dedup.ops import first_twins
 from repro_torch.kernels.knn_score.kernel import knn_scores_cuda
 from repro_torch.kernels.knn_score.ops import knn_scores
 from repro_torch.kernels.list_merge.kernel import merge_sorted_cuda
@@ -123,11 +125,12 @@ def _cases():
         "twin_probe": (twin_probe, (vals, vals[:, 3])),
         "verify_rows": (verify_rows, (R, R[2], torch.ones(12, dtype=bool))),
         "embedding_bag": (embedding_bag, (R, nbrs, w)),
+        "key_dedup": (first_twins, (w, nbrs, R, users.long())),
     }
 
 
 KERNEL_NAMES = ["similarity", "list_merge", "knn_score", "twin_probe",
-                "verify_rows", "embedding_bag"]
+                "verify_rows", "embedding_bag", "key_dedup"]
 
 
 @pytest.mark.parametrize("name", KERNEL_NAMES)
@@ -167,7 +170,14 @@ def test_kernel_bindings_refuse_cpu_tensors():
                                    torch.ones(2, dtype=torch.bool))),
                (embedding_bag_cuda, (torch.zeros(4, 3),
                                      torch.zeros(2, 2, dtype=torch.int32),
-                                     torch.zeros(2, 2)))]
+                                     torch.zeros(2, 2))),
+               (probe_cuda, (torch.zeros(2, 3),
+                             torch.zeros(2, 3, dtype=torch.int32),
+                             torch.zeros(2, 1))),
+               (verify_cuda, (torch.zeros(2, 3),
+                              torch.zeros(2, 3, dtype=torch.int32),
+                              torch.zeros(2, 1), None,
+                              torch.zeros(2, dtype=torch.int64)))]
     for fn, args in fn_args:
         with pytest.raises(ValueError, match="CUDA"):
             fn(*args)

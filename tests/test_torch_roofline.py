@@ -14,6 +14,8 @@ from repro.launch import roofline as jroof
 from repro_torch.kernels import _lib
 from repro_torch.kernels.embedding_bag import kernel as bag_k
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
+from repro_torch.kernels.key_dedup import kernel as dedup_k
+from repro_torch.kernels.key_dedup.ops import first_twins
 from repro_torch.kernels.knn_score import kernel as knn_k
 from repro_torch.kernels.knn_score.ops import knn_scores
 from repro_torch.kernels.list_merge import kernel as merge_k
@@ -130,6 +132,8 @@ COSTS = {
                     107.5e6, 4),
     # (8, 32,896) probe rows: 1.09 MB.
     "twin_probe": (probe_k.cost(8, 32_896), "bytes", 1.09e6, 3),
+    # B = 32 keys of 20 + 20 + 58,541 words, 7 twins: 10.8 MB.
+    "key_dedup": (dedup_k.cost(32, 58_581, pairs=7), "bytes", 10.8e6, 3),
     # 262,144 bags x 8, f32 weights, 100,194 distinct rows of 10: 31.3 MB.
     "embedding_bag": (bag_k.cost(60_803_072, 262_144, 8, 10, weighted=True,
                                  masked=False, rows=100_194), "bytes",
@@ -184,6 +188,10 @@ META_CALLS = {
         _meta((37, 7)), _meta((5, 3), torch.int32),
         mask=_meta((5, 3), torch.bool)), [((5, 7), torch.float32)],
         bag_k.cost(37, 5, 3, 7, weighted=False, masked=True)),
+    "key_dedup": (lambda: first_twins(
+        _meta((6, 4)), _meta((6, 4), torch.int32), _meta((50, 37)),
+        _meta((6,), torch.int64)), [((6,), torch.int32)],
+        dedup_k.cost(6, 45)),
 }
 
 

@@ -113,6 +113,7 @@ def test_server_script_parity(rng):
                                atol=TOL)
     assert tsrv.predict(5, 2, k=7) == pytest.approx(
         jsrv.predict(5, 2, k=7), abs=TOL)
+    assert tsrv.stats.query_unique == jsrv.stats.query_unique
 
     # A poisoned arena rolls back to the last good snapshot.
     jpoison_state(jsrv, rows=[2, 17])
