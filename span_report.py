@@ -37,7 +37,8 @@ for _p in (str(ROOT), str(ROOT / "src")):
         sys.path.insert(0, _p)
 
 REQUEST = {"onboard": "cf_server.onboard_user",
-           "read": "cf_server.recommend_batch", "build": "cf.build_step"}
+           "read": "cf_server.recommend_batch", "build": "cf.build_step",
+           "burst": "cf.onboard_step"}
 
 
 def card() -> dict:

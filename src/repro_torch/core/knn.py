@@ -9,15 +9,25 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.similarity import row_norms, similarity_matrix
+from repro_torch.core.similarity import _safe, row_norms, similarity_matrix
 from repro_torch.core.types import (CFState, SENTINEL, SENTINEL_GATE,
                                     as_index)
 from repro_torch.kernels.knn_score.ops import knn_recommend_topn
 from repro_torch.sorting import argsort_rows, top_k
+from repro_torch.spans import RECORDER
 
 # Rows per sort call when whole arenas are sorted: torch.sort returns int64
 # indices, 8.6 GB for a 32k x 32k arena in one piece.
 SORT_CHUNK_ROWS = 4096
+
+# Rows of one tile of ``build_state``'s cosine product, and of its sort
+# slices.  At the item arena's 129,490 columns a normalised float64 tile
+# is 2.1 GB and a sort slice of 2,048 x 58,541 about 4.3 GB (values,
+# int64 indices and the sort's scratch), so beside the 57.7 GB arena the
+# build peaks under 64 GB.
+TILE_ROWS = 2048
+# Rows normalised at a time into a tile (bounds the float32 temporary).
+UNIT_CHUNK_ROWS = 256
 
 
 def sort_rows(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -27,28 +37,96 @@ def sort_rows(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def build_state(R: torch.Tensor, *, capacity_extra: int = 0,
-                measure: str = "cosine") -> CFState:
+                measure: str = "cosine", hand_over: bool = False
+                ) -> CFState:
     """Full similarity build: the traditional O(n^2 m) path, producing the
     sorted lists the system maintains thereafter.  ``capacity_extra``
     preallocates slots for onboarding bursts.  The arena lives on R's
-    device; rows are sorted in chunks of ``SORT_CHUNK_ROWS``."""
+    device.
+
+    With ``hand_over=True``, ``capacity_extra == 0`` and R a contiguous
+    float32 tensor, the caller hands R over: it becomes the arena's
+    ratings, uncopied, and the arena's writes (``add_rating``) land in
+    it.  Otherwise R is copied into the (n + capacity_extra, m) ratings.
+
+    The cosine build is tiled, so nothing of size (n, m) or (n, n) is
+    alive beside the arena: row norms a tile at a time (the per-row
+    formula of ``row_norms``), then for each tile of ``TILE_ROWS`` rows,
+    normalised as ``cosine_matrix`` normalises (the float32 row divided
+    by its clamped float32 norm: normalise first, then multiply), its
+    products with every later tile normalised alike, written straight
+    into both tiles' rows of ``sim_vals`` (the product's transpose is its
+    mirror tile), and its rows, complete once the earlier tiles have
+    written their mirrors, sorted stably in slices of at most
+    min(``TILE_ROWS``, ``SORT_CHUNK_ROWS``) rows.  The products of the
+    float32 unit rows are summed in float64 (exact products; TF32 never
+    applies) and rounded once to float32: a float32 sum drifts along
+    dense rows (up to 1.4e-4 from the exact cosine over 129,490 columns
+    on an H100), where this one stays within a few float32 ulps of it.  The other measures build
+    their whole (n, n) matrix first.
+
+    Spans: ``knn.build``, with a device span ``knn.tile`` a tile product
+    and ``knn.sort`` a sort slice."""
     n, m = R.shape
     N = n + capacity_extra
     dev = R.device
-    S = similarity_matrix(R.float(), measure)
-    ratings = torch.zeros((N, m), dtype=torch.float32, device=dev)
-    ratings[:n] = R
-    sim_vals = torch.full((N, N), SENTINEL, dtype=torch.float32, device=dev)
-    sim_idx = torch.empty((N, N), dtype=torch.int32, device=dev)
-    for r0 in range(0, n, SORT_CHUNK_ROWS):
-        r1 = min(n, r0 + SORT_CHUNK_ROWS)
-        sim_vals[r0:r1, :n] = S[r0:r1]
-        sim_vals[r0:r1], sim_idx[r0:r1] = sort_rows(sim_vals[r0:r1])
-    del S
-    # All-SENTINEL padding rows: a stable sort is the identity permutation.
-    sim_idx[n:] = torch.arange(N, dtype=torch.int32, device=dev)
-    return CFState(ratings=ratings, norms=row_norms(ratings),
-                   sim_vals=sim_vals, sim_idx=sim_idx, n_active=n)
+    with RECORDER.span("knn.build"):
+        if (hand_over and capacity_extra == 0
+                and R.dtype == torch.float32 and R.is_contiguous()):
+            ratings = R
+        else:
+            ratings = torch.zeros((N, m), dtype=torch.float32, device=dev)
+            ratings[:n] = R
+        norms = torch.zeros(N, dtype=torch.float32, device=dev)
+        for r0 in range(0, n, TILE_ROWS):
+            norms[r0:r0 + TILE_ROWS] = row_norms(ratings[r0:r0 + TILE_ROWS])
+        sim_vals = torch.full((N, N), SENTINEL, dtype=torch.float32,
+                              device=dev)
+        sim_idx = torch.empty((N, N), dtype=torch.int32, device=dev)
+        if measure != "cosine":
+            sim_vals[:n, :n] = similarity_matrix(ratings[:n], measure)
+        step = min(TILE_ROWS, SORT_CHUNK_ROWS)
+        for r0 in range(0, n, TILE_ROWS):
+            r1 = min(n, r0 + TILE_ROWS)
+            if measure == "cosine":
+                _cosine_tiles(ratings, norms, sim_vals, r0, r1, n)
+            for s0 in range(r0, r1, step):
+                sl = slice(s0, min(r1, s0 + step))
+                with RECORDER.span("knn.sort", device=dev.type == "cuda"):
+                    sim_vals[sl], sim_idx[sl] = sort_rows(sim_vals[sl])
+        # All-SENTINEL padding rows: a stable sort is the identity.
+        sim_idx[n:] = torch.arange(N, dtype=torch.int32, device=dev)
+    return CFState(ratings=ratings, norms=norms, sim_vals=sim_vals,
+                   sim_idx=sim_idx, n_active=n)
+
+
+def _unit(ratings: torch.Tensor, norms: torch.Tensor, r0: int, r1: int
+          ) -> torch.Tensor:
+    """Rows [r0, r1) divided by their clamped norms in float32
+    (``cosine_matrix``'s normalisation), held in float64 (exactly)."""
+    out = torch.empty((r1 - r0, ratings.shape[1]), dtype=torch.float64,
+                      device=ratings.device)
+    for s0 in range(r0, r1, UNIT_CHUNK_ROWS):
+        s1 = min(r1, s0 + UNIT_CHUNK_ROWS)
+        out[s0 - r0:s1 - r0] = ratings[s0:s1] / _safe(norms[s0:s1])[:, None]
+    return out
+
+
+def _cosine_tiles(ratings: torch.Tensor, norms: torch.Tensor,
+                  sim_vals: torch.Tensor, r0: int, r1: int, n: int) -> None:
+    """The products of rows [r0, r1) with rows [r0, n), written into
+    ``sim_vals`` at [r0:r1, c0:c1] and mirrored at [c0:c1, r0:r1]."""
+    rows = _unit(ratings, norms, r0, r1)
+    cuda = ratings.device.type == "cuda"
+    for c0 in range(r0, n, TILE_ROWS):
+        c1 = min(n, c0 + TILE_ROWS)
+        cols = rows if c0 == r0 else _unit(ratings, norms, c0, c1)
+        with RECORDER.span("knn.tile", device=cuda):
+            out = sim_vals[r0:r1, c0:c1]
+            out.copy_(rows @ cols.T)
+            if c0 != r0:
+                sim_vals[c0:c1, r0:r1] = out.T
+        del cols
 
 
 def top_k_neighbors_batch(state: CFState, users, k: int

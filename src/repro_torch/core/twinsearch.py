@@ -214,6 +214,13 @@ def onboard_batch_buffered(state: CFState, R_new: torch.Tensor, probe_idx,
     earlier twin winning; a twin's id is ``N_base + s``; all k rows sort
     once, stably, at the end.
 
+    Spans, a row: ``burst.search`` (probe sims, candidate mask and bounded
+    verify), ``burst.internal`` (the equality against the burst) and
+    ``burst.block_sims``, each as launched (the found flags are read after
+    all three, outside them), then ``burst.copy`` or the device span
+    ``burst.fallback`` (the O(N·m) product); once a burst the device span
+    ``burst.sort``.
+
     Returns (vals (k, N_tot) ascending, idx (k, N_tot) int32, stats); with
     ``maintain=True`` a fourth element (base_vals, base_idx): every base
     row's list re-sorted to width N_tot with all k new users merged in by
@@ -235,38 +242,48 @@ def onboard_batch_buffered(state: CFState, R_new: torch.Tensor, probe_idx,
     karange = torch.arange(k, device=dev)
 
     buf = torch.full((k, N_tot), SENTINEL, dtype=torch.float32, device=dev)
+    cuda = dev.type == "cuda"
     outs = []
     for j in range(k):
         r0 = R_new[j]
-        sims0 = probe_sims(state, r0, probe_idx[j])
-        cand = candidate_mask(state, probe_idx[j], sims0, tol)
-        found_b, twin_b, n_cand, ovf = verify_candidates(
-            state, r0, cand, s_max, 0, 0)
+        with RECORDER.span("burst.search"):
+            sims0 = probe_sims(state, r0, probe_idx[j])
+            cand = candidate_mask(state, probe_idx[j], sims0, tol)
+            found_b, twin_b, n_cand, ovf = verify_candidates(
+                state, r0, cand, s_max, 0, 0)
 
         # Burst-internal twins: verify against R_new directly.
-        live = karange < j
-        eq_new = torch.all(R_new == r0[None, :], dim=1) & live
-        found_n = torch.any(eq_new)
-        twin_n = torch.argmax(eq_new.to(torch.uint8))
+        with RECORDER.span("burst.internal"):
+            live = karange < j
+            eq_new = torch.all(R_new == r0[None, :], dim=1) & live
+            found_n = torch.any(eq_new)
+            twin_n = torch.argmax(eq_new.to(torch.uint8))
 
         # Block sims are needed on every path (the copied row must carry
         # entries for previously-added burst users) — O(k·m).
-        bsims = cosine_vs_all(Rn, new_norms, r0.float())
-        buf[j, N_base:] = torch.where(live, bsims, SENTINEL)
+        with RECORDER.span("burst.block_sims"):
+            bsims = cosine_vs_all(Rn, new_norms, r0.float())
+            buf[j, N_base:] = torch.where(live, bsims, SENTINEL)
         if bool(found_b):
-            u = torch.full((N_base,), SENTINEL, dtype=torch.float32,
-                           device=dev)
-            u[state.sim_idx[twin_b].long()] = state.sim_vals[twin_b].float()
-            buf[j, :N_base] = u
+            with RECORDER.span("burst.copy"):
+                u = torch.full((N_base,), SENTINEL, dtype=torch.float32,
+                               device=dev)
+                u[state.sim_idx[twin_b].long()] = \
+                    state.sim_vals[twin_b].float()
+                buf[j, :N_base] = u
         elif bool(found_n):
-            buf[j, :N_base] = buf[twin_n, :N_base]
+            with RECORDER.span("burst.copy"):
+                buf[j, :N_base] = buf[twin_n, :N_base]
         else:
-            buf[j, :N_base] = cosine_vs_all(state.ratings, state.norms, r0)
+            with RECORDER.span("burst.fallback", device=cuda):
+                buf[j, :N_base] = cosine_vs_all(state.ratings, state.norms,
+                                                r0)
         outs.append((found_b | found_n,
                      torch.where(found_b, twin_b, N_base + twin_n),
                      n_cand, ovf))
 
-    vals, idx = argsort_rows(buf)
+    with RECORDER.span("burst.sort", device=cuda):
+        vals, idx = argsort_rows(buf)
     found, twin, ncand, ovf = (torch.stack(x) for x in zip(*outs))
     stats = OnboardStats(found=found, twin_idx=twin, n_candidates=ncand,
                          overflowed=ovf)

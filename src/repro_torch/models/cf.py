@@ -78,7 +78,14 @@ def onboard_step(state: CFState, R_new: torch.Tensor, probes,
     (``distributed.sharding.local_state``) of an arena row-sharded over
     those axes of the ``DeviceMesh``, and the sharded burst runs
     (``twinsearch_sharded.onboard_batch_sharded``); N_base is the width of
-    the lists."""
+    the lists.  One call is one request of ``repro_torch.spans``,
+    ``cf.onboard_step``."""
+    with RECORDER.request("cf.onboard_step"):
+        return _onboard(state, R_new, probes, cfg, mesh_info)
+
+
+def _onboard(state: CFState, R_new: torch.Tensor, probes, cfg: CFConfig,
+             mesh_info):
     n_base = state.sim_vals.shape[1]
     s_max = set0_cap(n_base, cfg.set0_divisor, cfg.set0_slack)
     if mesh_info is not None:

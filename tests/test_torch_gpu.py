@@ -877,6 +877,30 @@ def test_rotation_plan_finalize_equals_frozen_rotation_on_card(cuda):
         np.testing.assert_array_equal(out[key], host[key], err_msg=key)
 
 
+@pytest.mark.parametrize("extra", [0, 8])
+def test_tiled_build_on_card_matches_the_whole_matrix(cuda, monkeypatch,
+                                                      extra):
+    """The tiled ``build_state`` on the card, tiles of 64 over 300 rows
+    (mirrors and a ragged edge), against the whole-matrix build it
+    replaced (``cosine_matrix``, a stable sort of every row); with
+    ``hand_over`` and no free slots the arena keeps the card's R."""
+    rng = np.random.default_rng(29)
+    R = _ratings(rng, 300, 517)
+    R[7] = R[3]                                  # a twin: a tie of 1.0
+    Rc = torch.as_tensor(R, device=cuda)
+    monkeypatch.setattr(knn, "TILE_ROWS", 64)
+    st = build_state(Rc, capacity_extra=extra, hand_over=True)
+    n, N = 300, 300 + extra
+    full = torch.full((N, N), SENTINEL, device=cuda)
+    full[:n, :n] = similarity.cosine_matrix(Rc)
+    vals, idx = torch.sort(full, dim=1, stable=True)
+    assert (st.ratings is Rc) == (extra == 0)
+    torch.testing.assert_close(st.norms[:n], similarity.row_norms(Rc))
+    assert lists_match(vals.cpu().numpy(), idx.int().cpu().numpy(),
+                       st.sim_vals.cpu().numpy(), st.sim_idx.cpu().numpy(),
+                       1e-6) is None
+
+
 def test_add_rating_on_card_matches_cpu_plain_path(cuda):
     rng = np.random.default_rng(1)
     R = _ratings(rng, 400, 120)

@@ -54,6 +54,26 @@ def test_build_state_parity(rng, measure):
                        t["sim_idx"], TOL) is None
 
 
+@pytest.mark.parametrize("measure", ["cosine", "pearson"])
+@pytest.mark.parametrize("tile,extra", [(7, 0), (7, 8), (11, 0), (11, 8)])
+def test_build_state_parity_tiled(rng, monkeypatch, measure, tile, extra):
+    """The tiled build against the reference's whole-matrix build, with
+    tiles that do not divide the 120 rows: several tiles, their mirrors
+    and their edges."""
+    R = _tie_heavy(rng)
+    monkeypatch.setattr(knn, "TILE_ROWS", tile)
+    j = _jstate_np(jbuild(jnp.asarray(R), capacity_extra=extra,
+                          measure=measure))
+    t = state_to_numpy(knn.build_state(torch.as_tensor(R),
+                                       capacity_extra=extra,
+                                       measure=measure))
+    assert t["n_active"] == j["n_active"] == 120
+    np.testing.assert_array_equal(t["ratings"], j["ratings"])
+    np.testing.assert_array_equal(t["norms"], j["norms"])
+    assert lists_match(j["sim_vals"], j["sim_idx"], t["sim_vals"],
+                       t["sim_idx"], TOL) is None
+
+
 def test_build_state_chunked_sort(rng, monkeypatch):
     """Sorting the arena in row chunks changes no bit."""
     R = _tie_heavy(rng)

@@ -224,7 +224,9 @@ def test_construction_is_a_request():
     R = make_ratings(np.random.default_rng(4), n=48, m=24)
     srv = CFServer(R, ServerConfig(capacity_extra=8), device="cpu")
     (e,) = RECORDER.entries("cf_server.init")
-    assert _names(e) == ["cf_server.snapshot"]
+    # The build (one tile and one sort slice at 56 rows), then the snapshot.
+    assert _names(e) == ["knn.build", "knn.tile", "knn.sort",
+                         "cf_server.snapshot"]
     assert srv.stats.snapshots == 1
 
 
