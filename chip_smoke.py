@@ -417,6 +417,111 @@ def check_list_merge(torch, dev) -> dict:
             "shape": [R, L, k]}
 
 
+def check_list_merge_rows(torch, dev) -> dict:
+    """The rotation's merge of the base rows (``merge_rows``, one launch a
+    4,096-row chunk) at the server's Douban shape: 32,768 base rows of
+    32,832 (the 64 write-region ids on each row's SENTINEL head, as
+    onboarding leaves them), k = 64, into the new arena's 32,896 columns.
+    Held bit for bit to its plain version and to the route it replaced
+    (gate, stable ``torch.sort``, gather, head columns, ``merge_insert``,
+    fit), then timed beside both and its bound; again with a write-region
+    id planted on a real value of every row, so that every row takes the
+    partition."""
+    from repro_torch.core import rotation
+    from repro_torch.core.knn import SORT_CHUNK_ROWS
+    from repro_torch.core.maintenance import merge_new_users_into_base
+    from repro_torch.kernels.list_merge.kernel import rows_cost
+    from repro_torch.kernels.list_merge.ops import merge_rows
+    from repro_torch.kernels.list_merge.ref import SENTINEL, merge_rows_ref
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    n_base, k = N_USERS, CAPACITY_EXTRA
+    L, W = n_base + k, n_base + 2 * k
+    vals = torch.empty((n_base, L), device=dev)
+    idx = torch.empty((n_base, L), dtype=torch.int32, device=dev)
+    col = torch.arange(L, device=dev)
+    for r0 in range(0, n_base, SORT_CHUNK_ROWS):       # bounded sort temps
+        r1 = min(n_base, r0 + SORT_CHUNK_ROWS)
+        v = torch.sort(torch.round(torch.rand(
+            (r1 - r0, L), device=dev, generator=g) * 200 - 100) / 100 + 0.0,
+            dim=1).values
+        heads = k + torch.randint(0, 64, (r1 - r0, 1), device=dev,
+                                  generator=g)
+        v[col[None, :] < heads] = SENTINEL
+        vals[r0:r1] = v
+        idx[r0:r1, :k] = n_base + col[:k].int()
+        idx[r0:r1, k:] = torch.argsort(torch.rand(
+            (r1 - r0, n_base), device=dev, generator=g), dim=1).int()
+        del v
+    U = torch.round(torch.rand((k, n_base), device=dev, generator=g) * 300
+                    - 200) / 100 + 0.0
+    U[U < -1] = SENTINEL
+    U[1] = vals[:, L // 2]                             # ties with row entries
+    ids = n_base + torch.arange(k, dtype=torch.int32, device=dev)
+    out_v = torch.empty((n_base, W), device=dev)
+    out_i = torch.empty((n_base, W), dtype=torch.int32, device=dev)
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    chunks = [(r0, min(n_base, r0 + SORT_CHUNK_ROWS))
+              for r0 in range(0, n_base, SORT_CHUNK_ROWS)]
+
+    def kernel(idx):
+        for r0, r1 in chunks:
+            merge_rows(vals, idx, U, ids, slice(r0, r1), out_v, out_i,
+                       n_base=n_base, reordered=count)
+
+    def plain(idx):
+        for r0, r1 in chunks:
+            pv, pi, _ = merge_rows_ref(vals[r0:r1], idx[r0:r1],
+                                       U[:, r0:r1].T, ids, n_base=n_base,
+                                       width=W)
+            yield r0, r1, pv, pi
+
+    def old_route(idx):
+        for r0, r1 in chunks:
+            gi = idx[r0:r1]
+            gate = gi < n_base
+            gv = torch.where(gate, vals[r0:r1], SENTINEL)
+            gi = torch.where(gate, gi, -1)
+            gv, order = torch.sort(gv, dim=1, stable=True)
+            gi = torch.gather(gi, 1, order)
+            mv, mi = merge_new_users_into_base(gv, gi, U[:, r0:r1], ids)
+            yield r0, r1, *rotation._fit_width(mv, mi, W)
+
+    out = {"name": "list_merge.rows", "shape": [n_base, L, k, W]}
+    b_ms, b_by = bound(rows_cost(n_base, L, k, W).bytes, 0.0)
+    for label, rows_idx in (("onboarding", idx), ("every row reordered",
+                                                  None)):
+        if rows_idx is None:                  # a write-region id on a value
+            rows_idx = idx.clone()
+            mid = L // 2
+            rows_idx[:, [0, mid]] = rows_idx[:, [mid, 0]]
+        count.zero_()
+        kernel(rows_idx)
+        torch.cuda.synchronize()
+        reordered = int(count)
+        same = all(torch.equal(out_v[r0:r1], pv) and
+                   torch.equal(out_i[r0:r1], pi)
+                   for r0, r1, pv, pi in plain(rows_idx))
+        check(same, f"list_merge rows ({label}) bit-identical to the plain "
+              "version")
+        same = all(torch.equal(out_v[r0:r1], ov) and
+                   torch.equal(out_i[r0:r1], oi)
+                   for r0, r1, ov, oi in old_route(rows_idx))
+        check(same, f"list_merge rows ({label}) bit-identical to the route "
+              "it replaced")
+        ms = cuda_ms(lambda: kernel(rows_idx), reps=5)
+        plain_ms = cuda_ms(lambda: list(plain(rows_idx)), reps=1)
+        old_ms = cuda_ms(lambda: list(old_route(rows_idx)), reps=1)
+        log(f"  list_merge rows ({label}; {n_base}x{L} -> {W}, k={k}, "
+            f"{len(chunks)} launches, {reordered} rows reordered): kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, old route (torch.sort "
+            f"preamble + merge_insert_f32) {old_ms:.3f} ms, bound "
+            f"{b_ms:.3f} ms ({b_by})")
+        out[label] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                      "old_route_ms": old_ms, "reordered_rows": reordered}
+    out.update({"bound_ms": b_ms, "bound_by": b_by})
+    return out
+
+
 def check_similarity(torch, dev, arena, R_host) -> dict:
     """Both f32 tile variants on the Douban-width arena: nq = 64 (the
     64-row tile) and nq = 32 (the 32-row tile, the server's burst width),
@@ -4218,6 +4323,8 @@ def main() -> int:
 
         log("== 3. kernels against their plain versions")
         entries = {"list_merge": check_list_merge(torch, dev)}
+        torch.cuda.empty_cache()
+        entries["list_merge"]["rows"] = check_list_merge_rows(torch, dev)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         R_host = douban_width_ratings()

@@ -5,7 +5,8 @@ recomputing a single similarity (PyTorch port of ``repro.core.rotation``).
     base row x — their unsorted rows come back by scattering each sorted
     list through its permutation;
   * every base row receives all k new entries in one fused k-way
-    merge-insert (``merge_new_users_into_base``, the list_merge kernel);
+    merge-insert (``kernels/list_merge/ops.merge_rows``: its gate, stable
+    partition, merge and fit in one list_merge launch a chunk of rows);
   * the burst block's mutual similarities complete by symmetry and each
     new row gains its self-entry of exactly 1;
   * ``extra`` fresh all-SENTINEL slots form the new write region.
@@ -13,7 +14,7 @@ recomputing a single similarity (PyTorch port of ``repro.core.rotation``).
 Everything is a rearrangement of values already in the arena, so the
 rotated lists are bit-identical to the reference's.  The new arena is
 allocated once and filled in chunks of base rows (row-local work, so the
-chunking changes no bit) to bound the temporaries on the card.
+chunking changes no bit); the base rows' merge writes into it directly.
 
 Two modes share the per-row merge and the assembly, so they agree bit for
 bit: ``rotate_arena`` (one shot, now) and ``RotationPlan`` (merge the base
@@ -27,8 +28,8 @@ import time
 import torch
 
 from repro_torch.core.knn import SORT_CHUNK_ROWS
-from repro_torch.core.maintenance import merge_new_users_into_base
 from repro_torch.core.types import CFState, SENTINEL, SENTINEL_GATE
+from repro_torch.kernels.list_merge.ops import merge_rows
 from repro_torch.sorting import argsort_rows
 from repro_torch.spans import RECORDER
 
@@ -62,22 +63,25 @@ def _fit_width(vals: torch.Tensor, idx: torch.Tensor,
 
 
 def merge_base_rows(sim_vals: torch.Tensor, sim_idx: torch.Tensor,
-                     U: torch.Tensor, rows, buf_ids: torch.Tensor, *,
-                     n_base: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Gate + stable re-sort + k-way merge for the base rows ``rows`` (a
-    slice, or an index tensor of row ids below ``n_base``).
+                    U: torch.Tensor, rows, buf_ids: torch.Tensor,
+                    out_vals: torch.Tensor, out_idx: torch.Tensor, *,
+                    n_base: int, reordered: torch.Tensor | None = None
+                    ) -> None:
+    """Gate + stable partition + k-way merge for the base rows ``rows`` (a
+    slice, or a list of row ids below ``n_base``), written into the same
+    rows of ``out_vals``/``out_idx`` at their width.
 
-    Entries pointing into the write region are gated to (SENTINEL, -1),
-    the gated lists are stable-sorted ascending again, and the whole burst
-    merges in one pass.  Returns the merged ascending (b, L + k) lists."""
+    Entries pointing into the write region are gated to (SENTINEL, -1); the
+    gated list, ascending again after a stable partition (SENTINELs first),
+    takes k head SENTINELs, and the whole burst merges in one pass; the
+    (L + k) result is head-padded or trimmed to the output's width.  One
+    list_merge launch (``merge_rows``).  ``reordered`` ((1,) int32 on the
+    state's device), if given, gains one for each row the partition had to
+    reorder: a row with a gated entry whose value is not SENTINEL (onboarding
+    leaves none; ``add_rating``'s refreshed rows can hold such entries)."""
     with RECORDER.span("rotation.merge", device=sim_vals.is_cuda):
-        gi_raw = sim_idx[rows]
-        gate = gi_raw < n_base
-        gv = torch.where(gate, sim_vals[rows], SENTINEL)
-        gi = torch.where(gate, gi_raw, -1)
-        gv, order = argsort_rows(gv)
-        gi = torch.gather(gi, 1, order)
-        return merge_new_users_into_base(gv, gi, U[:, rows], buf_ids)
+        merge_rows(sim_vals, sim_idx, U, buf_ids, rows, out_vals, out_idx,
+                   n_base=n_base, reordered=reordered)
 
 
 def _burst_rows(U: torch.Tensor, *, n_base: int, n_frozen: int,
@@ -98,17 +102,17 @@ def _burst_rows(U: torch.Tensor, *, n_base: int, n_frozen: int,
 
 
 def _assemble(state: CFState, *, n_base: int, n_frozen: int, extra: int,
-              U: torch.Tensor | None, merged) -> CFState:
+              U: torch.Tensor | None, merge) -> CFState:
     """The rotated arena of capacity ``n_active + extra``.  Base rows
-    ``[0, n_base)`` take ``merged(r0, r1)``, the merged (r1 - r0, L + k)
-    lists of those rows; the burst ``[n_base, n_frozen)`` is built from the
-    recovered block ``U``; rows ``[n_frozen, n_active)`` are carried.  Both
-    rotation modes assemble through here, so they agree bit for bit.
+    ``[0, n_base)`` are written by ``merge(r0, r1, sim_vals, sim_idx)``,
+    which fills rows ``[r0, r1)`` of the new lists; the burst
+    ``[n_base, n_frozen)`` is built from the recovered block ``U``; rows
+    ``[n_frozen, n_active)`` are carried.  Both rotation modes assemble
+    through here, so they agree bit for bit.
 
     Two ``rotation.assemble`` spans lie beside the merges
     (``rotation.merge``): the allocation with the ratings' and norms'
-    copies, and the burst, carried and write-region rows; the merged rows'
-    copies lie between the merges."""
+    copies, and the burst, carried and write-region rows."""
     n_act = state.n_active
     k = n_frozen - n_base
     n_new = n_act + extra
@@ -124,15 +128,11 @@ def _assemble(state: CFState, *, n_base: int, n_frozen: int, extra: int,
                                device=dev)
         sim_idx = torch.empty((n_new, n_new), dtype=torch.int32, device=dev)
 
-    def fill(r0: int, r1: int, v: torch.Tensor, i: torch.Tensor) -> None:
-        sim_vals[r0:r1], sim_idx[r0:r1] = _fit_width(v, i, n_new)
-
     if k == 0:                               # pure growth, nothing to merge
         carried_from = 0
     else:
         for r0 in range(0, n_base, SORT_CHUNK_ROWS):
-            r1 = min(n_base, r0 + SORT_CHUNK_ROWS)
-            fill(r0, r1, *merged(r0, r1))
+            merge(r0, min(n_base, r0 + SORT_CHUNK_ROWS), sim_vals, sim_idx)
         carried_from = n_frozen
     with RECORDER.span("rotation.assemble", device=on_card):
         if k:
@@ -141,7 +141,8 @@ def _assemble(state: CFState, *, n_base: int, n_frozen: int, extra: int,
                             n_new=n_new)
         for r0 in range(carried_from, n_act, SORT_CHUNK_ROWS):
             r1 = min(n_act, r0 + SORT_CHUNK_ROWS)
-            fill(r0, r1, state.sim_vals[r0:r1], state.sim_idx[r0:r1])
+            sim_vals[r0:r1], sim_idx[r0:r1] = _fit_width(
+                state.sim_vals[r0:r1], state.sim_idx[r0:r1], n_new)
         # Fresh write region: all-SENTINEL rows with identity permutations
         # (what ``build_state`` gives inactive slots).
         sim_vals[n_act:] = SENTINEL
@@ -151,14 +152,16 @@ def _assemble(state: CFState, *, n_base: int, n_frozen: int, extra: int,
 
 
 def rotate_arena_frozen(state: CFState, *, n_base: int, n_frozen: int,
-                        extra: int) -> CFState:
+                        extra: int, reordered: torch.Tensor | None = None
+                        ) -> CFState:
     """Compact the frozen burst ``[n_base, n_frozen)`` into a new base
     arena of capacity ``n_active + extra``; rows ``[n_frozen, n_active)``
     are carried into the new write region with their lists re-fit to the
     new width — valid because onboarding only ever writes the new user's
     own row.  ``n_frozen == n_active`` is the classic full rotation.  This
-    is also the deterministic replay of a WAL ``rotate_commit`` record."""
-    U = merged = None
+    is also the deterministic replay of a WAL ``rotate_commit`` record.
+    ``reordered``: see ``merge_base_rows``."""
+    U = merge = None
     if n_frozen > n_base:
         with RECORDER.span("rotation.recover"):
             buf = torch.arange(n_base, n_frozen, dtype=torch.int32,
@@ -166,23 +169,27 @@ def rotate_arena_frozen(state: CFState, *, n_base: int, n_frozen: int,
             U = unsorted_rows(state.sim_vals, state.sim_idx,
                               slice(n_base, n_frozen))
 
-        def merged(r0: int, r1: int):
-            return merge_base_rows(state.sim_vals, state.sim_idx, U,
-                                    slice(r0, r1), buf, n_base=n_base)
+        def merge(r0: int, r1: int, out_v: torch.Tensor,
+                  out_i: torch.Tensor) -> None:
+            merge_base_rows(state.sim_vals, state.sim_idx, U, slice(r0, r1),
+                            buf, out_v, out_i, n_base=n_base,
+                            reordered=reordered)
     return _assemble(state, n_base=n_base, n_frozen=n_frozen, extra=extra,
-                     U=U, merged=merged)
+                     U=U, merge=merge)
 
 
 def rotate_arena(state: CFState, *, n_base: int, extra: int,
-                 headroom: float = 1.0) -> CFState:
+                 headroom: float = 1.0,
+                 reordered: torch.Tensor | None = None) -> CFState:
     """Compact the write region [n_base, n_active) into a new base arena of
     capacity ``n_active + extra``.  ``headroom`` makes the fresh write
-    region at least ``headroom`` times the burst just absorbed."""
+    region at least ``headroom`` times the burst just absorbed;
+    ``reordered``: see ``merge_base_rows``."""
     n_act = state.n_active
     k = n_act - n_base
     extra = max(int(extra), int(math.ceil(float(headroom) * k)))
     return rotate_arena_frozen(state, n_base=n_base, n_frozen=n_act,
-                               extra=extra)
+                               extra=extra, reordered=reordered)
 
 
 class RotationPlan:
@@ -215,7 +222,8 @@ class RotationPlan:
     """
 
     def __init__(self, state: CFState, *, n_base: int, extra: int,
-                 chunk_rows: int = 64):
+                 chunk_rows: int = 64,
+                 reordered: torch.Tensor | None = None):
         self.n_base = int(n_base)
         self.n_frozen = int(state.n_active)
         self.k = self.n_frozen - self.n_base
@@ -223,6 +231,7 @@ class RotationPlan:
         self.chunk = max(1, int(chunk_rows))
         self.restarts = 0
         self.elapsed_ms = 0.0        # accumulated step + finalize time
+        self._reordered = reordered  # see merge_base_rows
         self._device = state.device
         self._buf = torch.arange(self.n_base, self.n_frozen,
                                  dtype=torch.int32, device=self._device)
@@ -285,9 +294,9 @@ class RotationPlan:
         self._stale = False
 
     def _run_rows(self, state: CFState, rows) -> None:
-        self._mv[rows], self._mi[rows] = merge_base_rows(
-            state.sim_vals, state.sim_idx, self._U, rows, self._buf,
-            n_base=self.n_base)
+        merge_base_rows(state.sim_vals, state.sim_idx, self._U, rows,
+                        self._buf, self._mv, self._mi, n_base=self.n_base,
+                        reordered=self._reordered)
 
     def step(self, state: CFState, budget_rows: int) -> int:
         """Merge up to ``budget_rows`` base rows against the frozen block;
@@ -309,7 +318,7 @@ class RotationPlan:
         while (processed < budget and self._cursor >= self.n_base
                and self._dirty):
             batch = sorted(self._dirty)[:self.chunk]
-            self._run_rows(state, torch.tensor(batch, device=self._device))
+            self._run_rows(state, batch)
             self._dirty.difference_update(batch)
             processed += len(batch)
         self._sync()
@@ -325,10 +334,13 @@ class RotationPlan:
         while not self.done:                     # force-drain the tail
             self.step(state, self.n_base)
         t0 = time.perf_counter()
+
+        def merge(r0: int, r1: int, out_v: torch.Tensor,
+                  out_i: torch.Tensor) -> None:
+            out_v[r0:r1], out_i[r0:r1] = _fit_width(
+                self._mv[r0:r1], self._mi[r0:r1], out_v.shape[1])
         out = _assemble(state, n_base=self.n_base, n_frozen=self.n_frozen,
-                        extra=self.extra, U=self._U,
-                        merged=lambda r0, r1: (self._mv[r0:r1],
-                                               self._mi[r0:r1]))
+                        extra=self.extra, U=self._U, merge=merge)
         self._sync()
         self.elapsed_ms += (time.perf_counter() - t0) * 1e3
         return out

@@ -12,7 +12,9 @@ from __future__ import annotations
 
 import torch
 
-# Strictly below SENTINEL (-2.0): a masked insert is always dropped.
+# ``repro_torch.core.types.SENTINEL``: an empty list slot.
+SENTINEL = -2.0
+# Strictly below SENTINEL: a masked insert is always dropped.
 NEG_INF = -3.0
 # Strictly above any list value: column padding of the TPU kernel's layout.
 POS_INF = 4.0
@@ -59,3 +61,45 @@ def merge_insert_ref(vals: torch.Tensor, idx: torch.Tensor,
     midx = torch.cat([idx, ins_idx.to(idx.dtype)], dim=1)
     order = torch.sort(mvals, dim=1, stable=True).indices[:, k:]
     return (torch.gather(mvals, 1, order), torch.gather(midx, 1, order))
+
+
+def merge_rows_ref(vals: torch.Tensor, idx: torch.Tensor,
+                   ins_vals: torch.Tensor, ins_idx: torch.Tensor, *,
+                   n_base: int, width: int
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What ``merge_rows_cuda`` computes for (b, L) ascending rows and
+    their (b, k) inserts in burst order (ids ``ins_idx``, (k,) or (b, k)):
+    entries with an id at or above ``n_base`` gated to (SENTINEL, -1); k
+    head (SENTINEL, -1) entries put before the gated row, and the whole
+    partitioned stably into the entries below SENTINEL, at it and above it
+    (the stable ascending sort of that concatenation, since the row was
+    ascending); the inserts merged in (``merge_sorted_ref``, the k smallest
+    dropped); the (b, L + k) lists head-padded with (SENTINEL, -1) or
+    head-trimmed to ``width``.  Returns (values, ids, reordered):
+    reordered marks the rows in which a gated entry held a value other
+    than SENTINEL, the rows the kernel partitions."""
+    b, L = vals.shape
+    k = ins_vals.shape[1]
+    gated = idx >= n_base
+    pad_v = torch.full((b, k), SENTINEL, dtype=vals.dtype, device=vals.device)
+    pad_i = torch.full((b, k), -1, dtype=idx.dtype, device=idx.device)
+    gv = torch.cat([pad_v, torch.where(gated, SENTINEL, vals)], dim=1)
+    gi = torch.cat([pad_i, torch.where(gated, -1, idx)], dim=1)
+    group = 2 - (gv <= SENTINEL).to(torch.int8) - (gv < SENTINEL).to(
+        torch.int8)
+    order = torch.sort(group, dim=1, stable=True).indices
+    sv, so = torch.sort(ins_vals.to(vals.dtype).contiguous(), dim=1,
+                        stable=True)
+    si = torch.gather(ins_idx.to(idx.dtype).expand(b, k), 1, so)
+    mv, mi = merge_sorted_ref(gv.gather(1, order), gi.gather(1, order), sv,
+                              si)
+    if width > L + k:
+        pad_v = torch.full((b, width - L - k), SENTINEL, dtype=vals.dtype,
+                           device=vals.device)
+        pad_i = torch.full((b, width - L - k), -1, dtype=idx.dtype,
+                           device=idx.device)
+        mv, mi = torch.cat([pad_v, mv], dim=1), torch.cat([pad_i, mi], dim=1)
+    else:
+        mv, mi = mv[:, L + k - width:], mi[:, L + k - width:]
+    reordered = (gated & (vals != SENTINEL)).any(dim=1)
+    return mv, mi, reordered

@@ -212,6 +212,11 @@ class ServerStats:
     wal_appends: int = 0
     wal_replayed: int = 0
     plan_restarts: int = 0      # incremental-rotation precompute restarts
+    # Base rows, over all rotations (an incremental plan's re-merged rows
+    # again), whose merge had to reorder them: a gated write-region entry
+    # held a value other than SENTINEL.  Read from the card after each
+    # rotation's sync.
+    rotation_reordered_rows: int = 0
     forced_drains: int = 0      # buffer filled before the plan finished
     queries: int = 0            # query rows served (valid rows only)
     query_batches: int = 0      # recommend_batch / predict_batch calls
@@ -280,6 +285,7 @@ class ServerStats:
             "wal_appends": self.wal_appends,
             "wal_replayed": self.wal_replayed,
             "plan_restarts": self.plan_restarts,
+            "rotation_reordered_rows": self.rotation_reordered_rows,
             "forced_drains": self.forced_drains,
             "onboard_p50_ms": ms[len(ms) // 2],
             "onboard_p99_ms": ms[min(len(ms) - 1, int(len(ms) * 0.99))],
@@ -430,6 +436,10 @@ class CFServer:
         # Incremental rotation: the pending plan (None = no rotation in
         # flight; always None when rotation.budget_rows == 0).
         self._plan: RotationPlan | None = None
+        # Every rotation's merge adds its reordered rows here, on the
+        # arena's device (``stats.rotation_reordered_rows``).
+        self._reordered = torch.zeros(1, dtype=torch.int32,
+                                      device=self.device)
 
         # ``_seq`` is the monotonic mutation counter: it numbers WAL
         # records AND disk checkpoints, so "checkpoint at S plus WAL
@@ -619,9 +629,11 @@ class CFServer:
         with RECORDER.span("cf_server.rotate", device=self._cuda) as span:
             self.state = rotate_arena(self.state, n_base=self.n_base,
                                       extra=self.k_cap,
-                                      headroom=self.rotate_headroom)
+                                      headroom=self.rotate_headroom,
+                                      reordered=self._reordered)
             self._sync()
         dt_ms = span.ms
+        self.stats.rotation_reordered_rows = int(self._reordered)
         self.n_base = self.state.n_active
         self._retarget()
         self.stats.rotations += 1
@@ -647,7 +659,8 @@ class CFServer:
                     int(math.ceil(self.rotate_headroom * self.k_cap)))
         self._plan = RotationPlan(self.state, n_base=self.n_base,
                                   extra=extra,
-                                  chunk_rows=max(1, self._rcfg.budget_rows))
+                                  chunk_rows=max(1, self._rcfg.budget_rows),
+                                  reordered=self._reordered)
         log.info("incremental rotation started: n_base=%d burst=%d "
                  "extra=%d", self.n_base, k0, extra)
 
@@ -706,8 +719,9 @@ class CFServer:
                                                "n_frozen": plan.n_frozen,
                                                "extra": plan.extra})
             self._crashpoint("rotation.commit_post_wal")
-            new_state = plan.finalize(self.state)
+            new_state = plan.finalize(self.state)      # ends in a sync
         pause_ms = span.ms
+        self.stats.rotation_reordered_rows = int(self._reordered)
         self._install_rotated(new_state, n_base=plan.n_frozen)
         self._plan = None
         self.stats.rotations += 1
@@ -891,8 +905,10 @@ class CFServer:
         self._cache = None
         new_state = rotate_arena_frozen(
             self.state, n_base=int(f["n_base"]),
-            n_frozen=int(f["n_frozen"]), extra=int(f["extra"]))
+            n_frozen=int(f["n_frozen"]), extra=int(f["extra"]),
+            reordered=self._reordered)
         self._sync()
+        self.stats.rotation_reordered_rows = int(self._reordered)
         self._install_rotated(new_state, n_base=int(f["n_frozen"]))
         self.stats.rotations += 1
 

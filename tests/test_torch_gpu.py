@@ -59,8 +59,9 @@ from repro_torch.kernels.key_dedup.kernel import verify_cuda
 from repro_torch.kernels.key_dedup.ref import key_words, probe_ref, verify_ref
 from repro_torch.kernels.knn_score.ops import knn_scores
 from repro_torch.kernels.knn_score.ref import knn_scores_ref
-from repro_torch.kernels.list_merge.ops import merge_insert
+from repro_torch.kernels.list_merge.ops import merge_insert, merge_rows
 from repro_torch.kernels.list_merge.ref import (merge_insert_ref,
+                                                merge_rows_ref,
                                                 merge_sorted_ref)
 from repro_torch.kernels.similarity.ops import cosine_similarity
 from repro_torch.kernels.similarity.ref import similarity_ref
@@ -268,6 +269,134 @@ def test_list_merge_kernel_bitwise_plain(cuda, R, L, k):
     rv, ri = merge_sorted_ref(args[0], args[1], sv,
                               torch.gather(args[3], 1, order))
     assert torch.equal(kv, rv) and torch.equal(ki, ri)
+
+
+def _rows_case(rng, b, L, k, n_base):
+    """b ascending rows over SENTINEL heads (a few values below SENTINEL,
+    ties everywhere), ids a permutation of the columns with -1 at half the
+    SENTINEL slots; rows 1, 4, ... keep every id at or above ``n_base`` on
+    SENTINEL entries (onboarding's rows), the others hold gated real values
+    in their middle.  Inserts tie with row entries, with each other and
+    with SENTINEL; no -0.0 (torch.sort on the card orders it before 0.0,
+    the CPU's and the kernel's stable order by value do not)."""
+    pool = np.concatenate([[-2.5, -2.0, -2.0, -2.0],
+                           np.round(rng.uniform(-1, 1, 6), 2) + 0.0])
+    vals = np.sort(rng.choice(pool, size=(b, L)).astype(np.float32), axis=1)
+    idx = np.stack([rng.permutation(L).astype(np.int32) for _ in range(b)])
+    idx[(vals == -2.0) & (rng.random((b, L)) < 0.5)] = -1
+    if n_base:
+        keep = (np.arange(b) % 3 == 1)[:, None] & (vals != -2.0)
+        idx[keep & (idx >= n_base)] %= n_base
+    ins = (np.round(rng.uniform(-2.2, 1, (b, k)), 2) + 0.0).astype(
+        np.float32)
+    ins[rng.random((b, k)) < 0.2] = -2.0
+    ins[0, 0] = vals[0, L // 2]
+    if k > 1:
+        ins[:, 1] = ins[:, 0]
+    return vals, idx, ins
+
+
+@pytest.mark.parametrize("b,L,k,fit", [(7, 97, 1, 5), (7, 97, 64, 0),
+                                       (7, 97, 333, -3), (33, 1024, 64, 0),
+                                       (5, 4097, 200, 7)])
+@pytest.mark.parametrize("n_base", ["zero", "middle", "L"])
+def test_merge_rows_kernel_bitwise_plain(cuda, b, L, k, fit, n_base):
+    """The rotation's merge on the card: bit for bit its plain version on
+    the CPU, one launch a call, rows written in place of an arena's rows
+    (a slice and a list) and nothing else, the reordered rows counted."""
+    n_base = {"zero": 0, "middle": 2 * L // 3, "L": L}[n_base]
+    W = L + k + fit
+    vals, idx, ins = map(torch.as_tensor, _rows_case(
+        np.random.default_rng(b + L + k + n_base), b, L, k, n_base))
+    ids = torch.arange(900, 900 + k, dtype=torch.int32)
+    ev, ei, moved = merge_rows_ref(vals, idx, ins, ids, n_base=n_base,
+                                   width=W)
+    N = b + 2                                   # rows 0 and N - 1 not merged
+    pad = torch.zeros(1, L)
+    arena_v = torch.cat([pad, vals, pad]).to(cuda)
+    arena_i = torch.cat([pad.int(), idx, pad.int()]).to(cuda)
+    U = torch.cat([torch.zeros(k, 1), ins.T, torch.zeros(k, 1)],
+                  dim=1).to(cuda)
+    for rows in (slice(1, N - 1), list(range(N - 2, 0, -1))):
+        out_v = torch.full((N, W), 7.0, device=cuda)
+        out_i = torch.full((N, W), 7, dtype=torch.int32, device=cuda)
+        count = torch.zeros(1, dtype=torch.int32, device=cuda)
+        _launched("list_merge", merge_rows, arena_v, arena_i, U,
+                  ids.to(cuda), rows, out_v, out_i, n_base=n_base,
+                  reordered=count)
+        assert torch.equal(out_v[1:-1].cpu(), ev)
+        assert torch.equal(out_i[1:-1].cpu(), ei)
+        assert (out_v[[0, -1]] == 7.0).all() and (out_i[[0, -1]] == 7).all()
+        assert int(count) == int(moved.sum())
+
+
+def test_merge_rows_kernel_at_douban_chunk_width(cuda):
+    """One rotation chunk at Douban width: 4,096 base rows of 32,832 (each
+    with the 64 write-region ids on its SENTINEL head, as onboarding leaves
+    it), k = 64, into 32,896 columns; every 7th row with write-region ids
+    planted on real values.  Bit for bit the plain version (run on the card
+    in slices), and the planted rows counted."""
+    b, k, n_base = 4096, 64, 32_768
+    L, W = n_base + k, n_base + 2 * k
+    g = torch.Generator(device=cuda).manual_seed(30)
+    n_sent = 64 + torch.randint(0, 200, (b, 1), device=cuda, generator=g)
+    vals = torch.round(torch.rand((b, L), device=cuda, generator=g) * 200
+                       - 100) / 100 + 0.0
+    vals = torch.sort(vals, dim=1).values
+    col = torch.arange(L, device=cuda)
+    vals[col[None, :] < n_sent] = SENTINEL
+    base_ids = torch.argsort(torch.rand((b, n_base), device=cuda,
+                                        generator=g), dim=1).int()
+    idx = torch.cat([n_base + col[None, :k].int().expand(b, k), base_ids],
+                    dim=1)
+    planted = torch.arange(0, b, 7, device=cuda)
+    swap = L // 2 + torch.arange(k, device=cuda)
+    idx[planted[:, None], swap[None, :]], idx[planted, :k] = \
+        idx[planted, :k], idx[planted[:, None], swap[None, :]]
+    U = torch.round(torch.rand((k, b), device=cuda, generator=g) * 300
+                    - 200) / 100 + 0.0
+    U[U < -1] = SENTINEL
+    U[3] = vals[:, L // 2]                      # ties with row entries
+    ids = n_base + torch.arange(k, dtype=torch.int32, device=cuda)
+    out_v = torch.empty((b, W), device=cuda)
+    out_i = torch.empty((b, W), dtype=torch.int32, device=cuda)
+    count = torch.zeros(1, dtype=torch.int32, device=cuda)
+    _launched("list_merge", merge_rows, vals, idx, U, ids, slice(0, b),
+              out_v, out_i, n_base=n_base, reordered=count)
+    assert int(count) == len(planted)
+    for r0 in range(0, b, 512):
+        sl = slice(r0, r0 + 512)
+        pv, pi, moved = merge_rows_ref(vals[sl], idx[sl], U[:, sl].T, ids,
+                                       n_base=n_base, width=W)
+        assert torch.equal(out_v[sl], pv) and torch.equal(out_i[sl], pi)
+        assert torch.equal(moved.nonzero()[:, 0] + r0,
+                           planted[(planted >= r0) & (planted < r0 + 512)])
+
+
+def test_rotation_on_card_is_one_launch_a_chunk(cuda, monkeypatch):
+    """A card rotation with a base row refreshed by ``add_rating`` (real
+    values at write-region ids): one list_merge launch a chunk of base
+    rows, bit for bit the CPU's rotation, the same reordered rows."""
+    from repro_torch.core import rotation
+    rng = np.random.default_rng(11)
+    _, srv = _card_state(cuda, rng)
+    n_base, st = srv.n_base, srv.state
+    st, _ = update.add_rating(st, update.init_cache(st.ratings), 5, 3, 2.0)
+    monkeypatch.setattr(rotation, "SORT_CHUNK_ROWS", 37)
+    count = torch.zeros(1, dtype=torch.int32, device=cuda)
+    before = launch_counts()["list_merge"]
+    out = rotate_arena_frozen(st, n_base=n_base, n_frozen=st.n_active,
+                              extra=9, reordered=count)
+    torch.cuda.synchronize()
+    assert launch_counts()["list_merge"] == before + -(-n_base // 37)
+    host_count = torch.zeros(1, dtype=torch.int32)
+    host = state_to_numpy(rotate_arena_frozen(
+        state_from_numpy(state_to_numpy(st), "cpu"), n_base=n_base,
+        n_frozen=st.n_active, extra=9, reordered=host_count))
+    out = state_to_numpy(out)
+    for key in ("ratings", "norms", "sim_vals", "sim_idx", "n_active"):
+        np.testing.assert_array_equal(out[key], host[key], err_msg=key)
+    assert int(count) == int(host_count) == 1
 
 
 def test_server_on_card_matches_cpu(cuda):
@@ -1732,6 +1861,18 @@ def _counted_case(name, rng):
         mask = torch.as_tensor(rng.random((16, 3)) < 0.8)
         return merge_insert, (vals, idx, f32(16, 3),
                               torch.arange(3, dtype=torch.int32), mask)
+    if name == "list_merge.rows":
+        vals = torch.sort(f32(16, 64), dim=1).values
+        idx = torch.as_tensor(rng.integers(0, 70, (16, 64)), dtype=torch.int32)
+
+        def rows(vals, idx, U, ids):              # rows 0, 1, 14, 15 stay 0
+            out_v = torch.zeros((16, 70), device=vals.device)
+            out_i = torch.zeros((16, 70), dtype=torch.int32,
+                                device=vals.device)
+            return merge_rows(vals, idx, U, ids, slice(2, 14), out_v, out_i,
+                              n_base=60)
+        return rows, (vals, idx, f32(3, 16),
+                      torch.arange(60, 63, dtype=torch.int32))
     if name == "knn_score":
         return knn_scores, (f32(120, 40), f32(33, 20).clamp_min(0),
                             torch.as_tensor(rng.integers(0, 120, (33, 20))),
@@ -1748,26 +1889,29 @@ def _counted_case(name, rng):
         torch.as_tensor(rng.random((4, 2)) < 0.6))
 
 
-@pytest.mark.parametrize("name", ["similarity", "list_merge", "knn_score",
+@pytest.mark.parametrize("name", ["similarity", "list_merge",
+                                  "list_merge.rows", "knn_score",
                                   "twin_probe", "verify_rows",
                                   "embedding_bag"])
 def test_kernel_counts_on_card_what_it_counts_on_meta(cuda, name):
+    """``<kernel>.<entry>`` names a second entry point of a kernel."""
     from repro_torch.launch.trace import Counter
 
     def on(device, args):
         return [None if a is None else a.to(device) for a in args]
 
+    kernel = name.split(".")[0]
     fn, args = _counted_case(name, np.random.default_rng(7))
     card_args = on(cuda, args)
     plain = fn(*card_args)                 # no counter (and warm state)
     torch.cuda.synchronize()
     with Counter() as card:
-        out = _launched(name, fn, *card_args)
+        out = _launched(kernel, fn, *card_args)
     meta_args = on("meta", args)
     with Counter() as meta:
         fn(*meta_args)
     assert card.kernels == meta.kernels
-    assert card.kernels[name]["calls"] == 1
+    assert card.kernels[kernel]["calls"] == 1
     assert (card.flops, card.flops_f32, card.bytes) == (
         meta.flops, meta.flops_f32, meta.bytes)
     outs = out if isinstance(out, tuple) else (out,)

@@ -19,7 +19,7 @@ from repro_torch.kernels.key_dedup.ops import first_twins
 from repro_torch.kernels.knn_score import kernel as knn_k
 from repro_torch.kernels.knn_score.ops import knn_scores
 from repro_torch.kernels.list_merge import kernel as merge_k
-from repro_torch.kernels.list_merge.ops import merge_insert
+from repro_torch.kernels.list_merge.ops import merge_insert, merge_rows
 from repro_torch.kernels.similarity import kernel as sim_k
 from repro_torch.kernels.similarity.ops import cosine_similarity
 from repro_torch.kernels.twin_probe import kernel as probe_k
@@ -124,6 +124,10 @@ COSTS = {
                    "flops", 2.46e11, 3),
     # (32,768, 32,896) lists, k = 64: 17.3 GB.
     "list_merge": (merge_k.cost(32_768, 32_896, 64), "bytes", 17.3e9, 3),
+    # The rotation's merge of 32,768 base rows of 32,832 into 32,896
+    # columns, k = 64: 17.2 GB.
+    "list_merge.rows": (merge_k.rows_cost(32_768, 32_832, 64, 32_896),
+                        "bytes", 17.2e9, 3),
     # B = 256, k = 20, m = 58,541, 4,959 distinct rows: 1.22 GB.
     "knn_score": (knn_k.cost(32_832, 58_541, 256, 20, rows=4_959), "bytes",
                   1.22e9, 3),
@@ -173,6 +177,13 @@ META_CALLS = {
         _meta((3,), torch.int32)),
         [((7, 13), torch.float32), ((7, 13), torch.int32)],
         merge_k.cost(7, 13, 3)),
+    "list_merge.rows": (lambda: merge_rows(
+        _meta((9, 13)), _meta((9, 13), torch.int32), _meta((3, 9)),
+        _meta((3,), torch.int32), slice(2, 7), _meta((11, 17)),
+        _meta((11, 17), torch.int32), n_base=8,
+        reordered=_meta((1,), torch.int32)),
+        [((11, 17), torch.float32), ((11, 17), torch.int32)],
+        merge_k.rows_cost(5, 13, 3, 17)),
     "knn_score": (lambda: knn_scores(
         _meta((50, 37)), _meta((3, 5)), _meta((3, 5), torch.int64),
         _meta((3,), torch.int64)),
@@ -197,16 +208,18 @@ META_CALLS = {
 
 @pytest.mark.parametrize("name", sorted(META_CALLS))
 def test_meta_branch_counts_the_formula(name):
+    """``<kernel>.<entry>`` names a second entry point of a kernel."""
     call, outs, cost = META_CALLS[name]
-    before = _lib.KERNELS[name].launches
+    kernel = name.split(".")[0]
+    before = _lib.KERNELS[kernel].launches
     with Counter() as counter:
         out = call()
     out = out if isinstance(out, tuple) else (out,)
     assert [(tuple(o.shape), o.dtype) for o in out] == outs
     assert all(o.is_meta for o in out)
-    assert counter.kernels[name] == {"calls": 1, "flops": cost.flops,
-                                     "bytes": cost.bytes}
-    assert _lib.KERNELS[name].launches == before      # nothing launched
+    assert counter.kernels[kernel] == {"calls": 1, "flops": cost.flops,
+                                       "bytes": cost.bytes}
+    assert _lib.KERNELS[kernel].launches == before    # nothing launched
     assert _lib.COUNTER is None
 
 

@@ -115,3 +115,46 @@ def test_onboard_after_rotation_then_rotate_again(rng):
     t2 = state_to_numpy(rotation.rotate_arena(
         state_from_numpy(j, device="cpu"), n_base=128, extra=8))
     _assert_same(t2, j2)
+
+
+def test_server_counts_the_rows_its_rotation_reorders(rng):
+    """Onboarding writes only the new user's row, so a rotation reorders
+    no base row; ``add_rating`` on a base user refreshes its list with real
+    values at write-region ids, which that row's merge must partition.  The
+    planted arena rotates bit for bit as the reference's."""
+    from repro.core.types import CFState as JState
+    from repro_torch.core.types import SENTINEL
+    from repro_torch.serving import CFServer, ServerConfig
+
+    R = make_ratings(rng, n=40, m=12)
+    srv = CFServer(R, ServerConfig(capacity_extra=4, c_probes=4),
+                   device="cpu")
+    for r in R[:5]:
+        assert srv.onboard_user(r).ok
+    assert srv.stats.rotations == 1
+    assert srv.stats.rotation_reordered_rows == 0
+    assert srv.stats.summary()["rotation_reordered_rows"] == 0
+
+    for r in R[5:8]:                     # three rows into the write region
+        assert srv.onboard_user(r).ok
+    assert srv.add_rating(3, 5, 4.0)
+    st = srv.state
+    gated_real = (st.sim_idx[:srv.n_base] >= srv.n_base) & (
+        st.sim_vals[:srv.n_base] != SENTINEL)
+    assert gated_real.any(dim=1).tolist() == [
+        r == 3 for r in range(srv.n_base)]
+    a = state_to_numpy(st)
+    js = jrot.rotate_arena(JState(*(jnp.asarray(a[f]) for f in (
+        "ratings", "norms", "sim_vals", "sim_idx", "n_active"))),
+        n_base=srv.n_base, extra=4)
+    count = torch.zeros(1, dtype=torch.int32)
+    t = state_to_numpy(rotation.rotate_arena(
+        state_from_numpy(a, device="cpu"), n_base=srv.n_base, extra=4,
+        reordered=count))
+    _assert_same(t, _jstate_np(js))
+    assert int(count) == 1
+
+    assert srv.onboard_user(R[8]).ok     # fills the region: no rotation yet
+    assert srv.onboard_user(R[9]).ok     # rotates first
+    assert srv.stats.rotations == 2
+    assert srv.stats.rotation_reordered_rows == 1
