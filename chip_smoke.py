@@ -422,14 +422,10 @@ def check_list_merge_rows(torch, dev) -> dict:
     4,096-row chunk) at the server's Douban shape: 32,768 base rows of
     32,832 (the 64 write-region ids on each row's SENTINEL head, as
     onboarding leaves them), k = 64, into the new arena's 32,896 columns.
-    Held bit for bit to its plain version and to the route it replaced
-    (gate, stable ``torch.sort``, gather, head columns, ``merge_insert``,
-    fit), then timed beside both and its bound; again with a write-region
-    id planted on a real value of every row, so that every row takes the
-    partition."""
-    from repro_torch.core import rotation
+    Held bit for bit to its plain version, then timed beside it and its
+    bound; again with a write-region id planted on a real value of every
+    row, so that every row takes the partition."""
     from repro_torch.core.knn import SORT_CHUNK_ROWS
-    from repro_torch.core.maintenance import merge_new_users_into_base
     from repro_torch.kernels.list_merge.kernel import rows_cost
     from repro_torch.kernels.list_merge.ops import merge_rows
     from repro_torch.kernels.list_merge.ref import SENTINEL, merge_rows_ref
@@ -475,17 +471,6 @@ def check_list_merge_rows(torch, dev) -> dict:
                                        width=W)
             yield r0, r1, pv, pi
 
-    def old_route(idx):
-        for r0, r1 in chunks:
-            gi = idx[r0:r1]
-            gate = gi < n_base
-            gv = torch.where(gate, vals[r0:r1], SENTINEL)
-            gi = torch.where(gate, gi, -1)
-            gv, order = torch.sort(gv, dim=1, stable=True)
-            gi = torch.gather(gi, 1, order)
-            mv, mi = merge_new_users_into_base(gv, gi, U[:, r0:r1], ids)
-            yield r0, r1, *rotation._fit_width(mv, mi, W)
-
     out = {"name": "list_merge.rows", "shape": [n_base, L, k, W]}
     b_ms, b_by = bound(rows_cost(n_base, L, k, W).bytes, 0.0)
     for label, rows_idx in (("onboarding", idx), ("every row reordered",
@@ -503,21 +488,14 @@ def check_list_merge_rows(torch, dev) -> dict:
                    for r0, r1, pv, pi in plain(rows_idx))
         check(same, f"list_merge rows ({label}) bit-identical to the plain "
               "version")
-        same = all(torch.equal(out_v[r0:r1], ov) and
-                   torch.equal(out_i[r0:r1], oi)
-                   for r0, r1, ov, oi in old_route(rows_idx))
-        check(same, f"list_merge rows ({label}) bit-identical to the route "
-              "it replaced")
         ms = cuda_ms(lambda: kernel(rows_idx), reps=5)
         plain_ms = cuda_ms(lambda: list(plain(rows_idx)), reps=1)
-        old_ms = cuda_ms(lambda: list(old_route(rows_idx)), reps=1)
         log(f"  list_merge rows ({label}; {n_base}x{L} -> {W}, k={k}, "
             f"{len(chunks)} launches, {reordered} rows reordered): kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, old route (torch.sort "
-            f"preamble + merge_insert_f32) {old_ms:.3f} ms, bound "
-            f"{b_ms:.3f} ms ({b_by})")
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms "
+            f"({b_by})")
         out[label] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                      "old_route_ms": old_ms, "reordered_rows": reordered}
+                      "reordered_rows": reordered}
     out.update({"bound_ms": b_ms, "bound_by": b_by})
     return out
 

@@ -13,16 +13,17 @@ A burst of k users lands in one fused k-way merge-insert
 (``kernels/list_merge``): O(N·(N + k)) instead of k·O(N²).  Inserts apply
 in burst order and row x takes the insert for new user u_t iff x < u_t,
 which reproduces the interleaved flow ``for t: append_user(u_t);
-insert_into_lists(u_t)`` element for element.  Everything here is data
-movement, so results are bit-identical to the reference.
+insert_into_lists(u_t)`` element for element.  The buffered bursts'
+merge into a read-only base (``merge_new_users_into_base``) is the same
+kernel's rotation entry, ``merge_rows``, with nothing gated.  Everything
+here is data movement, so results are bit-identical to the reference.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.knn import SORT_CHUNK_ROWS
-from repro_torch.core.types import CFState, SENTINEL, as_index
-from repro_torch.kernels.list_merge.ops import merge_insert
+from repro_torch.core.types import CFState, as_index
+from repro_torch.kernels.list_merge.ops import merge_insert, merge_rows
 
 
 def insert_batch_into_lists(state: CFState, new_users: torch.Tensor,
@@ -87,19 +88,6 @@ def splice_twin(state: CFState, new_user: int, twin: int) -> CFState:
     return insert_into_lists(state, new_user, sims)
 
 
-def _head_merge(vals: torch.Tensor, idx: torch.Tensor,
-                sims_block: torch.Tensor, ids: torch.Tensor
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One launch of the base merge over the given rows."""
-    n, k = vals.shape[0], sims_block.shape[0]
-    dev = vals.device
-    vals = torch.cat([torch.full((n, k), SENTINEL, dtype=vals.dtype,
-                                 device=dev), vals], dim=1)
-    idx = torch.cat([torch.full((n, k), -1, dtype=torch.int32, device=dev),
-                     idx.to(torch.int32)], dim=1)
-    return merge_insert(vals, idx, sims_block.T, ids)
-
-
 def merge_new_users_into_base(base_vals: torch.Tensor, base_idx: torch.Tensor,
                               sims_block: torch.Tensor,
                               new_user_ids: torch.Tensor
@@ -110,21 +98,15 @@ def merge_new_users_into_base(base_vals: torch.Tensor, base_idx: torch.Tensor,
     one entry per new user, without writing the base state.
 
     ``sims_block``: (k, Nb), sims_block[t, x] = sim(u_t, base row x);
-    ``new_user_ids``: (k,) ids the merged entries carry.  More than
-    ``SORT_CHUNK_ROWS`` rows merge that many rows per launch into one
-    preallocated output: the merge is row-local, so the result is the same
-    bit for bit, and the concatenated input holds one chunk (a whole
-    Douban-width burst's would be about 8.6 GB beside the output)."""
+    ``new_user_ids``: (k,) ids the merged entries carry.  One
+    ``list_merge`` ``merge_rows`` launch writes the output: with ``n_base``
+    L, above every id a list holds, nothing is gated, and the stable
+    partition leaves a list with no value below SENTINEL as it is."""
     Nb, L = base_vals.shape
     k = sims_block.shape[0]
     dev = base_vals.device
     ids = as_index(new_user_ids, dev).to(torch.int32)
-    if Nb <= SORT_CHUNK_ROWS:
-        return _head_merge(base_vals, base_idx, sims_block, ids)
-    out_v = torch.empty((Nb, L + k), dtype=base_vals.dtype, device=dev)
+    out_v = torch.empty((Nb, L + k), dtype=torch.float32, device=dev)
     out_i = torch.empty((Nb, L + k), dtype=torch.int32, device=dev)
-    for r0 in range(0, Nb, SORT_CHUNK_ROWS):
-        sl = slice(r0, r0 + SORT_CHUNK_ROWS)
-        out_v[sl], out_i[sl] = _head_merge(base_vals[sl], base_idx[sl],
-                                           sims_block[:, sl], ids)
-    return out_v, out_i
+    return merge_rows(base_vals, base_idx.to(torch.int32), sims_block.float(),
+                      ids, slice(0, Nb), out_v, out_i, n_base=L)

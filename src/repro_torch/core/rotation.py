@@ -30,6 +30,7 @@ import torch
 from repro_torch.core.knn import SORT_CHUNK_ROWS
 from repro_torch.core.types import CFState, SENTINEL, SENTINEL_GATE
 from repro_torch.kernels.list_merge.ops import merge_rows
+from repro_torch.kernels.list_merge.ref import fit_width
 from repro_torch.sorting import argsort_rows
 from repro_torch.spans import RECORDER
 
@@ -44,22 +45,6 @@ def unsorted_rows(sim_vals: torch.Tensor, sim_idx: torch.Tensor,
     out = torch.full(v.shape, SENTINEL, dtype=v.dtype, device=v.device)
     out[torch.arange(v.shape[0], device=v.device)[:, None], i] = v
     return out
-
-
-def _fit_width(vals: torch.Tensor, idx: torch.Tensor,
-               width: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Pad (head SENTINELs, id -1) or trim (head entries, SENTINELs by
-    construction) ascending lists to ``width`` columns."""
-    rows, cur = vals.shape
-    if cur == width:
-        return vals, idx
-    if cur < width:
-        pad_v = torch.full((rows, width - cur), SENTINEL, dtype=vals.dtype,
-                           device=vals.device)
-        pad_i = torch.full((rows, width - cur), -1, dtype=idx.dtype,
-                           device=idx.device)
-        return torch.cat([pad_v, vals], dim=1), torch.cat([pad_i, idx], dim=1)
-    return vals[:, cur - width:], idx[:, cur - width:]
 
 
 def merge_base_rows(sim_vals: torch.Tensor, sim_idx: torch.Tensor,
@@ -141,7 +126,7 @@ def _assemble(state: CFState, *, n_base: int, n_frozen: int, extra: int,
                             n_new=n_new)
         for r0 in range(carried_from, n_act, SORT_CHUNK_ROWS):
             r1 = min(n_act, r0 + SORT_CHUNK_ROWS)
-            sim_vals[r0:r1], sim_idx[r0:r1] = _fit_width(
+            sim_vals[r0:r1], sim_idx[r0:r1] = fit_width(
                 state.sim_vals[r0:r1], state.sim_idx[r0:r1], n_new)
         # Fresh write region: all-SENTINEL rows with identity permutations
         # (what ``build_state`` gives inactive slots).
@@ -337,7 +322,7 @@ class RotationPlan:
 
         def merge(r0: int, r1: int, out_v: torch.Tensor,
                   out_i: torch.Tensor) -> None:
-            out_v[r0:r1], out_i[r0:r1] = _fit_width(
+            out_v[r0:r1], out_i[r0:r1] = fit_width(
                 self._mv[r0:r1], self._mi[r0:r1], out_v.shape[1])
         out = _assemble(state, n_base=self.n_base, n_frozen=self.n_frozen,
                         extra=self.extra, U=self._U, merge=merge)

@@ -17,8 +17,8 @@ so a burst of identical new users twins each other.
 
 ``onboard_batch_buffered`` is the other onboarding path: the burst lands
 in a (k, N_base + k) write buffer over a read-only base state, and with
-``maintain=True`` every base row's list gains the whole burst in one k-way
-merge-insert on the ``list_merge`` kernel.
+``maintain=True`` every base row's list gains the whole burst in one
+``list_merge`` launch (``merge_rows``).
 
 Probes come from a CPU ``torch.Generator`` (``make_probes``), so the card
 and the CPU draw the same ones.  Tests that hold the port against the JAX
@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.core import baseline
 from repro_torch.core.maintenance import merge_new_users_into_base
+from repro_torch.core.rotation import unsorted_rows
 from repro_torch.core.similarity import cosine_vs_all
 from repro_torch.core.types import (CFState, OnboardStats, SENTINEL,
                                     TwinResult, active_mask, as_index,
@@ -143,10 +144,8 @@ def onboard_twinsearch(state: CFState, r0: torch.Tensor, probe_idx, *,
     N = state.capacity
     if found:
         with RECORDER.span("twinsearch.copy"):
-            tidx = state.sim_idx[res.twin_idx].long()
-            u = torch.full((N,), SENTINEL, dtype=state.sim_vals.dtype,
-                           device=state.device)
-            u[tidx] = state.sim_vals[res.twin_idx]
+            u = unsorted_rows(state.sim_vals, state.sim_idx,
+                              res.twin_idx.reshape(1))[0]
             if k_cap > 0:
                 blk = torch.clamp(n_base + torch.arange(k_cap,
                                                         device=state.device),
@@ -223,9 +222,10 @@ def onboard_batch_buffered(state: CFState, R_new: torch.Tensor, probe_idx,
 
     Returns (vals (k, N_tot) ascending, idx (k, N_tot) int32, stats); with
     ``maintain=True`` a fourth element (base_vals, base_idx): every base
-    row's list re-sorted to width N_tot with all k new users merged in by
-    one k-way merge-insert (the ``list_merge`` kernel), fed from the write
-    buffer's base columns at zero extra similarity compute.
+    row's list at width N_tot with all k new users merged in
+    (``maintenance.merge_new_users_into_base``: one ``list_merge`` launch
+    on the card), fed from the write buffer's base columns at zero extra
+    similarity compute.
 
     The reference's ``unroll``, ``rows_spec`` and ``use_pallas`` arguments
     are dropped: eager PyTorch has no scan to unroll or sharding to name,
@@ -266,11 +266,8 @@ def onboard_batch_buffered(state: CFState, R_new: torch.Tensor, probe_idx,
             buf[j, N_base:] = torch.where(live, bsims, SENTINEL)
         if bool(found_b):
             with RECORDER.span("burst.copy"):
-                u = torch.full((N_base,), SENTINEL, dtype=torch.float32,
-                               device=dev)
-                u[state.sim_idx[twin_b].long()] = \
-                    state.sim_vals[twin_b].float()
-                buf[j, :N_base] = u
+                buf[j, :N_base] = unsorted_rows(
+                    state.sim_vals, state.sim_idx, twin_b.reshape(1))[0]
         elif bool(found_n):
             with RECORDER.span("burst.copy"):
                 buf[j, :N_base] = buf[twin_n, :N_base]

@@ -47,6 +47,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.maintenance import merge_new_users_into_base
+from repro_torch.core.rotation import unsorted_rows
 from repro_torch.core.similarity import cosine_vs_all
 from repro_torch.core.twinsearch import mask_from_probe_rows
 from repro_torch.core.types import (CFState, OnboardStats, SENTINEL,
@@ -187,11 +188,9 @@ def onboard_batch_sharded(state: CFState, R_new: torch.Tensor, probe_idx,
         # Row construction: base copy / burst copy / fallback.
         if found_b:
             ids = torch.tensor([twin_b], device=dev)
-            u = torch.full((N_base,), SENTINEL, dtype=torch.float32,
-                           device=dev)
-            u[fetch(state.sim_idx, ids)[0].long()] = fetch(
-                state.sim_vals, ids)[0].float()
-            buf[j, :N_base] = u
+            buf[j, :N_base] = unsorted_rows(fetch(state.sim_vals, ids),
+                                            fetch(state.sim_idx, ids),
+                                            slice(None))[0]
         elif found_n:
             buf[j, :N_base] = buf[twin_n, :N_base]
         else:

@@ -6,7 +6,8 @@ the k smallest elements of the merged (L + k) multiset are dropped.  Ties
 order as (value, age): row entries are older than every insert, inserts
 age by burst position — exactly k sequential ``searchsorted(side="right")``
 drop-min inserts.  Masked-off inserts take the value ``NEG_INF`` (below
-SENTINEL), sort to the front and are always dropped.
+SENTINEL), sort to the front and are always dropped.  ``fit_width`` is the
+list format's one head pad or trim, which the rotation uses too.
 """
 from __future__ import annotations
 
@@ -93,13 +94,22 @@ def merge_rows_ref(vals: torch.Tensor, idx: torch.Tensor,
     si = torch.gather(ins_idx.to(idx.dtype).expand(b, k), 1, so)
     mv, mi = merge_sorted_ref(gv.gather(1, order), gi.gather(1, order), sv,
                               si)
-    if width > L + k:
-        pad_v = torch.full((b, width - L - k), SENTINEL, dtype=vals.dtype,
-                           device=vals.device)
-        pad_i = torch.full((b, width - L - k), -1, dtype=idx.dtype,
-                           device=idx.device)
-        mv, mi = torch.cat([pad_v, mv], dim=1), torch.cat([pad_i, mi], dim=1)
-    else:
-        mv, mi = mv[:, L + k - width:], mi[:, L + k - width:]
+    mv, mi = fit_width(mv, mi, width)
     reordered = (gated & (vals != SENTINEL)).any(dim=1)
     return mv, mi, reordered
+
+
+def fit_width(vals: torch.Tensor, idx: torch.Tensor,
+              width: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pad (head SENTINELs, id -1) or trim (head entries, SENTINELs by
+    construction) ascending lists to ``width`` columns."""
+    rows, cur = vals.shape
+    if cur == width:
+        return vals, idx
+    if cur < width:
+        pad_v = torch.full((rows, width - cur), SENTINEL, dtype=vals.dtype,
+                           device=vals.device)
+        pad_i = torch.full((rows, width - cur), -1, dtype=idx.dtype,
+                           device=idx.device)
+        return torch.cat([pad_v, vals], dim=1), torch.cat([pad_i, idx], dim=1)
+    return vals[:, cur - width:], idx[:, cur - width:]

@@ -1146,8 +1146,12 @@ def test_kill_replica_on_card_heals_without_similarity_calls(cuda):
         assert torch.equal(a[:n], b)
 
 
-@pytest.mark.parametrize("chunk_rows", [1, 64, 333, 4096])
-def test_chunked_base_merge_on_card(cuda, monkeypatch, chunk_rows):
+@pytest.mark.parametrize("n_rows", [1, 64, 333, 4096])
+def test_chunked_base_merge_on_card(cuda, n_rows):
+    """The base merge of the leading ``n_rows`` rows (all 700 at 4,096) is
+    one ``list_merge`` launch, equal bit for bit to those rows of the
+    head-padded ``merge_insert`` over every row and to the plain merge on
+    the CPU."""
     rng = np.random.default_rng(8)
     st = build_state(torch.as_tensor(_ratings(rng, 700, 80), device=cuda))
     k = 32
@@ -1160,16 +1164,17 @@ def test_chunked_base_merge_on_card(cuda, monkeypatch, chunk_rows):
                   dim=1),
         torch.cat([torch.full((700, k), -1, dtype=torch.int32, device=cuda),
                    st.sim_idx], dim=1), sims.T, ids.to(torch.int32))
-    monkeypatch.setattr(maintenance, "SORT_CHUNK_ROWS", chunk_rows)
+    rows = slice(0, n_rows)
     before = launch_counts()["list_merge"]
-    out = maintenance.merge_new_users_into_base(st.sim_vals, st.sim_idx,
-                                                sims, ids)
+    out = maintenance.merge_new_users_into_base(
+        st.sim_vals[rows], st.sim_idx[rows], sims[:, rows], ids)
     torch.cuda.synchronize()
-    assert launch_counts()["list_merge"] == before + -(-700 // chunk_rows)
+    assert launch_counts()["list_merge"] == before + 1
     host = maintenance.merge_new_users_into_base(
-        st.sim_vals.cpu(), st.sim_idx.cpu(), sims.cpu(), ids.cpu())
+        st.sim_vals[rows].cpu(), st.sim_idx[rows].cpu(), sims[:, rows].cpu(),
+        ids.cpu())
     for a, b, c in zip(out, whole, host):
-        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+        assert torch.equal(a, b[rows]) and torch.equal(a.cpu(), c)
 
 
 @pytest.mark.parametrize("maintain", [False, True])

@@ -21,12 +21,12 @@ from repro.core import maintenance as jmaint
 from repro.kernels.list_merge.ops import merge_insert as jmerge
 from repro.kernels.list_merge.ref import merge_insert_ref as jmerge_ref
 from repro_torch.bridge import state_from_numpy
-from repro_torch.core import maintenance, rotation
+from repro_torch.core import maintenance
 from repro_torch.core.types import SENTINEL
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.list_merge import ref as merge_ref
 from repro_torch.kernels.list_merge.ops import merge_insert, merge_rows
-from repro_torch.kernels.list_merge.ref import merge_insert_ref
+from repro_torch.kernels.list_merge.ref import fit_width, merge_insert_ref
 from tests.conftest import make_ratings
 
 torch.set_num_threads(2)
@@ -151,7 +151,22 @@ def _old_route(vals, idx, ins, ids, n_base, width):
         torch.cat([torch.full((b, k), SENTINEL), gv], dim=1),
         torch.cat([torch.full((b, k), -1, dtype=torch.int32), gi], dim=1),
         ins, ids.expand(b, k), torch.ones((b, k), dtype=torch.bool))
-    return (*rotation._fit_width(mv, mi, width), order)
+    return (*fit_width(mv, mi, width), order)
+
+
+@pytest.mark.parametrize("width", [3, 5, 8])
+def test_fit_width_pads_and_trims_the_head(width):
+    """``fit_width`` head-pads with (SENTINEL, -1), head-trims, or returns
+    the lists as they are, written out by hand."""
+    v = torch.tensor([[SENTINEL, SENTINEL, 0.1, 0.5, 0.9]])
+    i = torch.tensor([[-1, 4, 2, 0, 1]], dtype=torch.int32)
+    fv, fi = fit_width(v, i, width)
+    pad = max(0, width - 5)
+    want_v = torch.cat([torch.full((1, pad), SENTINEL), v], dim=1)
+    want_i = torch.cat([torch.full((1, pad), -1, dtype=torch.int32), i],
+                       dim=1)
+    assert torch.equal(fv, want_v[:, -width:])
+    assert torch.equal(fi, want_i[:, -width:])
 
 
 def _rows_case(rng, b, L, k, n_base):

@@ -8,7 +8,8 @@ exact; sorted values within 2e-5 (the reference's own bound in
 within it (``bridge.lists_match``); every maintained base row lists each
 new user exactly once.  Inside the port, the buffered rows equal
 ``onboard_batch``'s rows bit for bit on integer ratings, and the base
-merge in row chunks equals one ``merge_insert`` over all rows bit for bit.  Probes come from JAX.
+merge of any leading rows, and of a rotated arena's lists, equals one
+head-padded ``merge_insert`` bit for bit.  Probes come from JAX.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from repro.core import build_state as jbuild
 from repro.core import twinsearch as jts
 from repro_torch.bridge import lists_match, state_from_numpy
 from repro_torch.core import (build_state, maintenance, onboard_batch,
-                              onboard_batch_buffered, set0_cap)
+                              onboard_batch_buffered, rotate_arena, set0_cap)
 from repro_torch.core.types import SENTINEL
 from repro_torch.kernels.list_merge.ops import merge_insert
 from tests.conftest import make_ratings
@@ -129,26 +130,61 @@ def test_buffered_rows_equal_onboard_batch_rows(rng, n, m, c):
     assert torch.equal(idx, arena.sim_idx[n:])
 
 
-@pytest.mark.parametrize("chunk_rows", [1, 7, 32, 119])
-def test_chunked_merge_equals_unchunked(rng, monkeypatch, chunk_rows):
-    """Merged in chunks of ``chunk_rows`` rows, the base merge equals one
-    ``merge_insert`` over every row, bit for bit."""
+def _head_padded_merge(vals, idx, sims, ids):
+    """The base merge by its definition: k head (SENTINEL, -1) columns and
+    one ``merge_insert`` of the burst over every row."""
+    n, k = vals.shape[0], sims.shape[0]
+    return merge_insert(
+        torch.cat([torch.full((n, k), SENTINEL), vals], dim=1),
+        torch.cat([torch.full((n, k), -1, dtype=torch.int32), idx], dim=1),
+        sims.T, ids.to(torch.int32))
+
+
+@pytest.mark.parametrize("n_rows", [1, 7, 32, 119])
+def test_chunked_merge_equals_unchunked(rng, n_rows):
+    """The base merge of the first ``n_rows`` rows alone equals those rows
+    of one head-padded ``merge_insert`` over all 120, bit for bit (the
+    merge is row-local)."""
     R = make_ratings(rng, n=120, m=40)
     st = build_state(torch.as_tensor(R), capacity_extra=0)
     k = 9
-    sims = torch.as_tensor(np.random.default_rng(chunk_rows).uniform(
+    sims = torch.as_tensor(np.random.default_rng(n_rows).uniform(
         -1, 1, (k, 120)).astype(np.float32))
     sims[3] = sims[1]                              # ties keep burst order
     ids = 120 + torch.arange(k)
-    whole = merge_insert(
-        torch.cat([torch.full((120, k), SENTINEL), st.sim_vals], dim=1),
-        torch.cat([torch.full((120, k), -1, dtype=torch.int32), st.sim_idx],
-                  dim=1), sims.T, ids.to(torch.int32))
-    monkeypatch.setattr(maintenance, "SORT_CHUNK_ROWS", chunk_rows)
-    chunked = maintenance.merge_new_users_into_base(st.sim_vals, st.sim_idx,
-                                                    sims, ids)
-    assert torch.equal(whole[0], chunked[0])
-    assert torch.equal(whole[1], chunked[1])
+    whole = _head_padded_merge(st.sim_vals, st.sim_idx, sims, ids)
+    rows = slice(0, n_rows)
+    part = maintenance.merge_new_users_into_base(
+        st.sim_vals[rows], st.sim_idx[rows], sims[:, rows], ids)
+    assert torch.equal(whole[0][rows], part[0])
+    assert torch.equal(whole[1][rows], part[1])
+
+
+def test_base_merge_of_rotated_lists_gates_nothing(rng):
+    """A rotated arena's lists hold id -1 at their SENTINEL head slots (and
+    the write region's ids): ``n_base`` = L gates none of them, so the
+    base merge equals the head-padded ``merge_insert`` bit for bit."""
+    R = make_ratings(rng, n=120, m=40)
+    st, _ = onboard_batch(build_state(torch.as_tensor(R[:112]),
+                                      capacity_extra=8),
+                          torch.as_tensor(R[112:]),
+                          torch.randint(0, 112, (8, 4),
+                                        generator=torch.Generator()
+                                        .manual_seed(5)),
+                          s_max=set0_cap(112))
+    st = rotate_arena(st, n_base=112, extra=8)
+    vals, idx = st.sim_vals, st.sim_idx
+    N = vals.shape[0]
+    assert N == 128 and bool((idx[:st.n_active] == -1).any())
+    k = 7
+    sims = torch.as_tensor(np.random.default_rng(7).uniform(
+        -1, 1, (k, N)).astype(np.float32))
+    sims[4] = sims[2]
+    sims[5, :10] = SENTINEL                        # ties with the heads
+    ids = N + torch.arange(k)
+    want = _head_padded_merge(vals, idx, sims, ids)
+    got = maintenance.merge_new_users_into_base(vals, idx, sims, ids)
+    assert torch.equal(want[0], got[0]) and torch.equal(want[1], got[1])
 
 
 def test_base_state_is_not_written(rng):
