@@ -16,7 +16,10 @@ Phases, in order; the script exits non-zero as soon as a check fails:
                ``key_dedup`` on a 32-user read batch's keys (7 repeats),
                against its plain version and ``dedup_rows``' plan, timed
                beside its bound, the plain version and the host route it
-               replaces.
+               replaces; the arena health sweep (``live_rows_ok``, one
+               ``verify_rows`` launch) over Douban-width and
+               MovieLens-width arenas, flags equal to the plain version's
+               clean and poisoned, timed beside it and its bound.
   4. server  — ``CFServer`` at Douban-film width (58,541 items at
                douban_film's density, 32,768 users): build, 48 planted
                twins + 16 fresh profiles into the 64-slot write buffer, one
@@ -220,6 +223,9 @@ BF16_FLOPS_PER_S = 989e12        # bf16 on the tensor cores, dense
 DOUBAN_USERS, DOUBAN_ITEMS, DOUBAN_RATINGS = 129_490, 58_541, 16_830_839
 N_USERS = 32_768                 # the full (N, N) arena would need 134 GB
 CAPACITY_EXTRA = 64
+# The ml20m-onboard cell's base: 40,960 users of MovieLens 20M's 27,278
+# items.
+ML20M_ROWS, ML20M_ITEMS = 40_960, 27_278
 C_PROBES = 8
 DEVICE = "cuda"
 # Kernel checks at the main path's shapes: the rotation's merge over the
@@ -497,6 +503,93 @@ def check_list_merge_rows(torch, dev) -> dict:
         out[label] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
                       "reordered_rows": reordered}
     out.update({"bound_ms": b_ms, "bound_by": b_by})
+    return out
+
+
+def check_arena_health(torch, dev) -> dict:
+    """The server's health sweep (``live_rows_ok``: one ``live_rows_f32``
+    launch) at Douban width (32,832 rows, lists 32,832 wide, 58,541 items)
+    and MovieLens width (41,024; 41,024; 27,278), every row live, filled
+    on the card as onboarding leaves an arena (ascending lists with ties
+    behind SENTINEL heads, integer ratings, their norms).  Its flags equal
+    to the plain version's (the sliced PyTorch route the server took
+    before) on the clean arena and with a row poisoned in each way; then
+    timed beside the plain version and the bound, and a whole
+    ``arena_healthy`` check (the sweep, the all-reduction and the bool the
+    server reads) on the host's clock."""
+    from repro_torch.core.types import SENTINEL
+    from repro_torch.kernels.verify_rows.kernel import live_cost
+    from repro_torch.kernels.verify_rows.ops import (HEALTH_CHUNK_ROWS,
+                                                     arena_healthy,
+                                                     live_rows_ok)
+    from repro_torch.kernels.verify_rows.ref import live_rows_ok_ref
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    out = {"name": "verify_rows.live"}
+    for label, n, m in (("douban", N_USERS + CAPACITY_EXTRA, DOUBAN_ITEMS),
+                        ("movielens", ML20M_ROWS + CAPACITY_EXTRA,
+                         ML20M_ITEMS)):
+        L = n
+        sv = torch.empty((n, L), device=dev)
+        rt = torch.empty((n, m), device=dev)
+        col = torch.arange(L, device=dev)
+        for r0 in range(0, n, HEALTH_CHUNK_ROWS):
+            r1 = min(n, r0 + HEALTH_CHUNK_ROWS)
+            v = torch.round(torch.cumsum(torch.rand(
+                (r1 - r0, L), device=dev, generator=g) * (2.0 / L), dim=1)
+                * 1000) / 1000 - 1.0
+            heads = CAPACITY_EXTRA + torch.randint(
+                0, 64, (r1 - r0, 1), device=dev, generator=g)
+            v[col[None, :] < heads] = SENTINEL
+            sv[r0:r1] = v
+            del v
+            rt[r0:r1] = torch.randint(1, 6, (r1 - r0, m), device=dev,
+                                      generator=g) * (torch.rand(
+                                          (r1 - r0, m), device=dev,
+                                          generator=g) < 0.01)
+        nm = torch.linalg.vector_norm(rt, dim=1)
+        flags = live_rows_ok(sv, rt, nm, n)
+        plain = live_rows_ok_ref(sv, rt, nm, n, HEALTH_CHUNK_ROWS)
+        check(torch.equal(flags, plain) and bool(flags.all()),
+              f"health sweep ({label}: {n} x ({L} + {m})) flags equal to "
+              "the plain version's on the clean arena, every row sound")
+        bad = {101: ("list NaN", sv, L // 2, float("nan")),
+               n // 2: ("rating +inf", rt, m - 1, float("inf")),
+               n - 1: ("rating -inf", rt, 0, float("-inf"))}
+        kept = {r: a[r, c].clone() for r, (_, a, c, _) in bad.items()}
+        for r, (_, a, c, value) in bad.items():
+            a[r, c] = value
+        drop = min(L - 1, 4 * 32 * 8 * 5 + 7)    # past a few warps' tiles
+        kept_pair = sv[7, drop].clone()
+        sv[7, drop] = sv[7, drop - 1] - 0.5
+        kept_norm = nm[n - 2].clone()
+        nm[n - 2] = -1.0
+        flags = live_rows_ok(sv, rt, nm, n)
+        plain = live_rows_ok_ref(sv, rt, nm, n, HEALTH_CHUNK_ROWS)
+        failed = sorted(torch.nonzero(~flags).flatten().tolist())
+        check(torch.equal(flags, plain)
+              and failed == sorted([*bad, 7, n - 2]),
+              f"health sweep ({label}) flags equal to the plain version's "
+              f"with rows {failed} poisoned (NaN and inf in both arrays, a "
+              "descending pair, a negative norm)")
+        for r, (_, a, c, _) in bad.items():
+            a[r, c] = kept[r]
+        sv[7, drop], nm[n - 2] = kept_pair, kept_norm
+        ms = cuda_ms(lambda: live_rows_ok(sv, rt, nm, n), reps=10)
+        plain_ms = cuda_ms(lambda: live_rows_ok_ref(
+            sv, rt, nm, n, HEALTH_CHUNK_ROWS), reps=3)
+        check_ms = call_ms(lambda: bool(arena_healthy(sv, rt, nm, n)),
+                           reps=10)
+        b_ms, b_by = bound(live_cost(n, L, m).bytes, 0.0)
+        log(f"  health sweep ({label}: {n} rows, lists {L}, {m} items): "
+            f"kernel {ms:.3f} ms ({100 * b_ms / ms:.1f}% of the bound), "
+            f"plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}); a "
+            f"whole arena_healthy check {check_ms:.3f} ms on the host")
+        out[label] = {"shape": [n, L, m], "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "bound_share": b_ms / ms, "check_ms": check_ms,
+                      "library_ms": None}
+        del sv, rt, nm, flags, plain
+        torch.cuda.empty_cache()
     return out
 
 
@@ -909,6 +1002,8 @@ def run_server(torch, dev, R_host) -> tuple:
     for name in MAIN_PATH:
         check(counts[name] > 0, f"kernel {name} launched {counts[name]} "
               "times on the main path")
+    check(counts["verify_rows"] > 0, f"the server's health checks launched "
+          f"the verify_rows sweep {counts['verify_rows']} times")
 
     # After the main path was read: profile a few more requests (they land
     # in free write slots and change none of the numbers above).
@@ -4304,6 +4399,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         entries["list_merge"]["rows"] = check_list_merge_rows(torch, dev)
         torch.cuda.empty_cache()
+        health = check_arena_health(torch, dev)
         t0 = time.perf_counter()
         R_host = douban_width_ratings()
         log(f"  synthesised {R_host.shape} ratings ({int((R_host != 0).sum())}"
@@ -4383,6 +4479,9 @@ def main() -> int:
                 e["recsys_path"] = recsys["bag_path"]
             if kname == "list_merge":
                 e["plan_merge"] = durability["plan_merge"]
+            if kname == "verify_rows":
+                e["arena_health"] = health
+                e["server_launches"] = server["launches"]["verify_rows"]
             if kname == "similarity":
                 e["build"] = cf_family["build_kernel"]
                 e["launches"] += roof["build"]["launches"]

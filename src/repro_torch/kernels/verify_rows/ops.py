@@ -1,21 +1,23 @@
-"""Public wrapper of the verification kernel, and the arena health checks
-that share its module in the JAX package.
+"""Public wrappers of the verification kernel and of the arena health
+sweep, which share its module (and its source, ``csrc/verify_rows.cu``).
 
-``verify_rows`` launches ``csrc/verify_rows.cu`` on CUDA tensors and runs
-the plain version (``ref.py``) on CPU tensors (on ``meta`` tensors the
-kernel's empty output, its cost reported to the active counter).  The JAX wrapper's TPU
-tiling and interpret arguments (``bs``, ``bk``, ``interpret``) are dropped:
-the kernel strides over any row width, so nothing is padded.
-``rows_sorted_finite`` and ``arena_healthy`` are plain PyTorch, as they are
-plain jnp in the JAX package; ``live_rows_ok`` is the per-row rule that
-``arena_healthy`` reduces and the replicas' ``bad_rows`` lists.
+``verify_rows`` and ``live_rows_ok`` launch the kernel's entry points on
+CUDA tensors and run the plain versions (``ref.py``) on CPU tensors (on
+``meta`` tensors the kernel's empty output, its cost reported to the
+active counter).  The JAX wrapper's TPU tiling and interpret arguments
+(``bs``, ``bk``, ``interpret``) are dropped: the kernel strides over any
+row width, so nothing is padded.  ``live_rows_ok`` is the per-row rule
+that ``arena_healthy`` reduces and the replicas' ``bad_rows`` lists; the
+JAX package computes it in plain jnp.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.verify_rows.kernel import ENTRY, verify_rows_cuda
-from repro_torch.kernels.verify_rows.ref import verify_rows_ref
+from repro_torch.kernels.verify_rows.kernel import (ENTRY, live_rows_cuda,
+                                                    verify_rows_cuda)
+from repro_torch.kernels.verify_rows.ref import (live_rows_ok_ref,
+                                                 verify_rows_ref)
 
 
 def verify_rows(C: torch.Tensor, r0: torch.Tensor, valid: torch.Tensor
@@ -38,18 +40,8 @@ def verify_rows(C: torch.Tensor, r0: torch.Tensor, valid: torch.Tensor
     raise ValueError(f"verify_rows: unsupported device {C.device}")
 
 
-def rows_sorted_finite(vals: torch.Tensor, n_active: int) -> torch.Tensor:
-    """(R,) per-row flags: live rows must be finite and ascending."""
-    R = vals.shape[0]
-    live = torch.arange(R, device=vals.device) < n_active
-    finite = torch.all(torch.isfinite(vals), dim=1)
-    ascending = torch.all(torch.diff(vals, dim=1) >= 0, dim=1)
-    return (finite & ascending) | ~live
-
-
-# Live rows per slice of the health sweep: the whole Douban-width arena at
-# once would hold about 12 GB of temporaries (``isfinite`` of 7.7 GB of
-# ratings allocates their absolute values).
+# Live rows per slice of the plain version's sweep, and of the replicas'
+# repair copies.
 HEALTH_CHUNK_ROWS = 4096
 
 
@@ -57,16 +49,16 @@ def live_rows_ok(sim_vals: torch.Tensor, ratings: torch.Tensor,
                  norms: torch.Tensor, n_active: int) -> torch.Tensor:
     """(n_live,) bool per live row (``n_active`` clamped to the capacity):
     similarity list finite and ascending, ratings finite, norm finite and
-    non-negative.  Swept in slices of ``HEALTH_CHUNK_ROWS`` rows, with no
-    sync between slices."""
-    n_live = min(max(n_active, 0), ratings.shape[0])
-    norms = norms[:n_live]
-    ok = torch.isfinite(norms) & (norms >= 0)
-    for r0 in range(0, n_live, HEALTH_CHUNK_ROWS):
-        r1 = min(n_live, r0 + HEALTH_CHUNK_ROWS)
-        ok[r0:r1] &= rows_sorted_finite(sim_vals[r0:r1], r1 - r0)
-        ok[r0:r1] &= torch.all(torch.isfinite(ratings[r0:r1]), dim=1)
-    return ok
+    non-negative.  On the card one ``live_rows_f32`` launch; on the CPU
+    the plain version, in slices of ``HEALTH_CHUNK_ROWS`` rows."""
+    n_live = min(max(int(n_active), 0), ratings.shape[0])
+    if ratings.is_cuda or ratings.is_meta:
+        return live_rows_cuda(sim_vals, ratings, norms, n_live)
+    if ratings.device.type != "cpu":
+        raise ValueError(f"live_rows_ok: unsupported device "
+                         f"{ratings.device}")
+    return live_rows_ok_ref(sim_vals, ratings, norms, n_live,
+                            HEALTH_CHUNK_ROWS)
 
 
 def arena_healthy(sim_vals: torch.Tensor, ratings: torch.Tensor,

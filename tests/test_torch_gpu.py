@@ -66,7 +66,9 @@ from repro_torch.kernels.list_merge.ref import (merge_insert_ref,
 from repro_torch.kernels.similarity.ops import cosine_similarity
 from repro_torch.kernels.similarity.ref import similarity_ref
 from repro_torch.kernels.twin_probe.ref import twin_probe_ref
-from repro_torch.kernels.verify_rows.ref import verify_rows_ref
+from repro_torch.kernels.verify_rows.ops import arena_healthy, live_rows_ok
+from repro_torch.kernels.verify_rows.ref import (live_rows_ok_ref,
+                                                 verify_rows_ref)
 from repro_torch.core import (RotationPlan, build_state, maintenance,
                               onboard_batch_buffered, rotate_arena_frozen,
                               set0_cap, update)
@@ -744,6 +746,166 @@ def test_verify_rows_kernel_promotion_and_other_dtypes(cuda):
     with pytest.raises(NotImplementedError, match="int32"):
         verify_rows(C.int(), C[3].int(), torch.ones(9, dtype=torch.bool,
                                                     device=cuda))
+
+
+def _subnormals(*units):
+    """float32 subnormals: each unit times the least one."""
+    return np.array(units, dtype=np.uint32).view(np.float32)
+
+
+def _health_arena(cuda, n, L, m, off_v, off_r, seed):
+    """n rows as the server keeps them (each list ascending with a SENTINEL
+    head and ties, small integer ratings, their norms), the lists and
+    ratings ``off_v`` and ``off_r`` elements into larger buffers so that
+    rows start at several offsets mod 16 bytes; rows follow each other
+    with no gap, and each row's last list value exceeds the next row's
+    first."""
+    rng = np.random.default_rng(seed)
+    vals = np.sort(np.round(rng.uniform(-1, 1, (n, L)), 1), axis=1)
+    vals[np.arange(L)[None, :] < rng.integers(0, L + 1, (n, 1))] = SENTINEL
+    if L >= 2:
+        vals[:, 0], vals[:, -1] = SENTINEL, 1.0
+    ratings = rng.integers(0, 6, (n, m)).astype(np.float64)
+    norms = np.sqrt((ratings ** 2).sum(axis=1))
+    vbuf = torch.zeros(off_v + n * L + 8, device=cuda)
+    rbuf = torch.zeros(off_r + n * m + 8, device=cuda)
+    sv = vbuf[off_v:off_v + n * L].view(n, L)
+    rt = rbuf[off_r:off_r + n * m].view(n, m)
+    sv.copy_(torch.as_tensor(vals, dtype=torch.float32))
+    rt.copy_(torch.as_tensor(ratings, dtype=torch.float32))
+    return sv, rt, torch.as_tensor(norms, dtype=torch.float32, device=cuda)
+
+
+def _plant_health_faults(sv, rt, nm):
+    """Plant one fault or one sound special case a row, from row 0 on.
+    Returns the rows' expected flags (rows after the planted ones True).
+    The faults: NaN, +inf and -inf in the first column, the last column and
+    the first 16-byte aligned column of a list and of a rating row; a
+    descending pair that straddles the head and the body, two chunks, two
+    lanes' loads, two warps' tiles, the body and the tail; a descending
+    subnormal pair; norms NaN, -1, +inf and minus the least subnormal.
+    Sound: equal values, all SENTINEL, ascending subnormals with -0.0 and
+    0.0 side by side both ways, a -0.0 norm."""
+    n, L = sv.shape
+    expect = [True] * n
+    row = 0
+
+    def take(ok):
+        nonlocal row
+        assert row < n, "too few rows for the planted cases"
+        expect[row] = ok
+        row += 1
+        return row - 1
+
+    for arr in (sv, rt):
+        width = arr.shape[1]
+        for value in (float("nan"), float("inf"), float("-inf")):
+            for where in ("first", "last", "aligned"):
+                head, tail = _row_parts(arr[row])
+                col = {"first": 0, "last": width - 1,
+                       "aligned": head if tail > head else None}[where]
+                if col is not None:
+                    arr[take(False), col] = value
+    for step in (0, 4, 4 * 32, 4 * 32 * 8):
+        head, tail = _row_parts(sv[row])
+        j = head + step if tail > head else None
+        if j is not None and 1 <= j < L:
+            r = take(False)
+            sv[r, j] = sv[r, j - 1] - 0.5
+    head, tail = _row_parts(sv[row])
+    if 1 <= tail < L:
+        r = take(False)
+        sv[r, tail] = sv[r, tail - 1] - 0.5
+    if L >= 2:
+        r = take(False)
+        sv[r, 1] = sv[r, 0] - 0.5
+    if L >= 8:
+        tiny = torch.as_tensor(_subnormals(1, 2, 3, 5), device=sv.device)
+        r = take(True)
+        sv[r] = 0.0
+        sv[r, :2] = torch.tensor([-0.0, 0.0])
+        sv[r, 2:4] = torch.tensor([0.0, -0.0])
+        sv[r, L - 4:] = tiny
+        r = take(False)
+        sv[r] = 0.0
+        sv[r, L - 4:] = tiny.flip(0)
+    r = take(True)
+    sv[r] = 0.25
+    r = take(True)
+    sv[r] = SENTINEL
+    for value in (float("nan"), -1.0, float("inf"),
+                  -float(_subnormals(1)[0])):
+        nm[take(False)] = value
+    nm[take(True)] = -0.0
+    return expect
+
+
+@pytest.mark.parametrize("L,m", [(1, 1), (3, 3), (6, 7), (10, 1001),
+                                 (2061, 7), (2061, 1001), (37, 1003)])
+@pytest.mark.parametrize("off_v,off_r", [(0, 0), (1, 3), (3, 2)])
+def test_live_rows_kernel_flags_equal_plain(cuda, L, m, off_v, off_r):
+    """Every planted fault and sound special case (``_plant_health_faults``)
+    at widths that exercise the scalar head, the body and the tail of both
+    arrays, and at three row offsets: the kernel's flags equal the plain
+    version's on the card and on the CPU, and the planted verdicts."""
+    n = 48
+    sv, rt, nm = _health_arena(cuda, n, L, m, off_v, off_r, L * m + off_v)
+    expect = _plant_health_faults(sv, rt, nm)
+    flags = _launched("verify_rows", live_rows_ok, sv, rt, nm, n)
+    plain = live_rows_ok_ref(sv, rt, nm, n, 5)
+    assert torch.equal(flags, plain)
+    assert torch.equal(flags.cpu(), live_rows_ok(sv.cpu(), rt.cpu(),
+                                                 nm.cpu(), n))
+    assert flags.tolist() == expect
+
+
+@pytest.mark.parametrize("n_active", [0, 1, 29, 40, 41, 45])
+def test_live_rows_kernel_live_rows_only(cuda, n_active):
+    """Rows at or past ``n_active`` are NaN everywhere and never read;
+    ``n_active`` above the capacity sweeps every row and fails the arena
+    (``arena_healthy`` is one launch, or none with no live row)."""
+    n, L, m = 40, 301, 257
+    sv, rt, nm = _health_arena(cuda, n, L, m, 1, 2, n_active)
+    rt[3, 100] = float("inf")
+    live = min(n_active, n)
+    sv[live:], rt[live:], nm[live:] = (float("nan"),) * 3
+    expect = [r != 3 for r in range(live)]
+    before = launch_counts()["verify_rows"]
+    flags = live_rows_ok(sv, rt, nm, n_active)
+    ok = arena_healthy(sv, rt, nm, n_active)
+    torch.cuda.synchronize()
+    assert launch_counts()["verify_rows"] == before + (2 if live else 0)
+    assert flags.shape == (live,) and flags.tolist() == expect
+    assert torch.equal(flags, live_rows_ok_ref(sv, rt, nm, live, 4096))
+    assert bool(ok) == (all(expect) and n_active <= n)
+
+
+def test_arena_healthy_one_launch_on_card(cuda):
+    """One health check on the card is one ``verify_rows`` launch (and its
+    bool)."""
+    sv, rt, nm = _health_arena(cuda, 33, 130, 77, 0, 1, 5)
+    assert bool(_launched("verify_rows", arena_healthy, sv, rt, nm, 33))
+    nm[32] = float("nan")
+    assert not bool(_launched("verify_rows", arena_healthy, sv, rt, nm, 33))
+
+
+@pytest.mark.parametrize("L,m", [(32_832, 58_541), (41_024, 27_278)])
+def test_live_rows_kernel_at_arena_widths(cuda, L, m):
+    """The Douban-width and MovieLens-width rows (a few of them): faults in
+    the last column, at the tile crossings deep in the row, and one clean
+    row, against the plain version."""
+    n = 12
+    sv, rt, nm = _health_arena(cuda, n, L, m, 0, 0, L)
+    sv[1, L - 1] = float("nan")
+    rt[2, m - 1] = float("-inf")
+    head, _ = _row_parts(sv[3])
+    j = head + 4 * 32 * 8 * 3                # a tile crossing
+    sv[3, j] = sv[3, j - 1] - 0.5
+    sv[4, L - 1] = sv[4, L - 2] - 0.5        # the last pair
+    rt[5, m // 2] = float("nan")
+    flags = _launched("verify_rows", live_rows_ok, sv, rt, nm, n)
+    assert torch.equal(flags, live_rows_ok_ref(sv, rt, nm, n, 4096))
+    assert flags.tolist() == [r not in (1, 2, 3, 4, 5) for r in range(n)]
 
 
 def _same_bits(a, b):
@@ -1878,6 +2040,11 @@ def _counted_case(name, rng):
                               n_base=60)
         return rows, (vals, idx, f32(3, 16),
                       torch.arange(60, 63, dtype=torch.int32))
+    if name == "verify_rows.live":
+        def live(vals, ratings, norms):          # rows 27-29 not live
+            return live_rows_ok(vals, ratings, norms, 27)
+        return live, (torch.sort(f32(30, 45), dim=1).values, f32(30, 61),
+                      f32(30).abs())
     if name == "knn_score":
         return knn_scores, (f32(120, 40), f32(33, 20).clamp_min(0),
                             torch.as_tensor(rng.integers(0, 120, (33, 20))),
@@ -1897,7 +2064,7 @@ def _counted_case(name, rng):
 @pytest.mark.parametrize("name", ["similarity", "list_merge",
                                   "list_merge.rows", "knn_score",
                                   "twin_probe", "verify_rows",
-                                  "embedding_bag"])
+                                  "verify_rows.live", "embedding_bag"])
 def test_kernel_counts_on_card_what_it_counts_on_meta(cuda, name):
     """``<kernel>.<entry>`` names a second entry point of a kernel."""
     from repro_torch.launch.trace import Counter

@@ -25,7 +25,7 @@ from repro_torch.kernels.similarity.ops import cosine_similarity
 from repro_torch.kernels.twin_probe import kernel as probe_k
 from repro_torch.kernels.twin_probe.ops import twin_probe
 from repro_torch.kernels.verify_rows import kernel as verify_k
-from repro_torch.kernels.verify_rows.ops import verify_rows
+from repro_torch.kernels.verify_rows.ops import live_rows_ok, verify_rows
 from repro_torch.launch import roofline
 from repro_torch.launch.trace import Collectives, Counter
 
@@ -134,6 +134,14 @@ COSTS = {
     # (458, 58,541) f32 candidate block: 107.5 MB.
     "verify_rows": (verify_k.cost(458, 58_541, torch.float32), "bytes",
                     107.5e6, 4),
+    # The health sweep over the Douban-width arena: 32,832 live rows of
+    # 32,832 list values and 58,541 ratings, their norms, and a flag a row:
+    # 12.0 GB.
+    "verify_rows.live": (verify_k.live_cost(32_832, 32_832, 58_541),
+                         "bytes", 12.00e9, 4),
+    # The same at MovieLens width (41,024 rows, 27,278 items): 11.2 GB.
+    "verify_rows.live_ml": (verify_k.live_cost(41_024, 41_024, 27_278),
+                            "bytes", 11.21e9, 4),
     # (8, 32,896) probe rows: 1.09 MB.
     "twin_probe": (probe_k.cost(8, 32_896), "bytes", 1.09e6, 3),
     # B = 32 keys of 20 + 20 + 58,541 words, 7 twins: 10.8 MB.
@@ -195,6 +203,10 @@ META_CALLS = {
         _meta((7, 1001), torch.int8), _meta((1001,), torch.int8),
         _meta((7,), torch.bool)), [((7,), torch.bool)],
         verify_k.cost(7, 1001, torch.int8)),
+    # n_active 11 over a capacity of 9 sweeps all 9 rows.
+    "verify_rows.live": (lambda: live_rows_ok(
+        _meta((9, 9)), _meta((9, 1001)), _meta((9,)), 11),
+        [((9,), torch.bool)], verify_k.live_cost(9, 9, 1001)),
     "embedding_bag": (lambda: embedding_bag(
         _meta((37, 7)), _meta((5, 3), torch.int32),
         mask=_meta((5, 3), torch.bool)), [((5, 7), torch.float32)],

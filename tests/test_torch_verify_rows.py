@@ -17,7 +17,10 @@ import jax.numpy as jnp
 
 from repro.kernels import verify_rows as jverify_rows
 from repro.kernels.verify_rows.ref import verify_rows_ref as jref
+from repro.distributed.replication import _row_ok as jrow_ok
 from repro_torch.kernels import launch_counts, verify_rows
+from repro_torch.kernels.verify_rows import kernel as vkernel
+from repro_torch.kernels.verify_rows.ops import live_rows_ok
 
 torch.set_num_threads(2)
 
@@ -120,3 +123,73 @@ def test_arena_healthy_sliced_matches_reference(monkeypatch, poison,
         got = ops.arena_healthy(torch.as_tensor(sv), torch.as_tensor(rt),
                                 torch.as_tensor(nm), n_active)
         assert bool(got) == want, (poison, n_active, chunk)
+
+
+def test_live_cost_at_douban_shape():
+    """The sweep's bound at the Douban-width arena: 4 bytes a list value, a
+    rating and a norm read, 1 byte a flag written, each once."""
+    n, L, m = 32_832, 32_832, 58_541
+    c = vkernel.live_cost(n, L, m)
+    assert c.bytes == n * (4 * L + 4 * m + 4 + 1) == 11_999_997_504
+    assert c.flops == n * (L + m + 1)
+    assert c.bytes / 3.35e12 * 1e3 == pytest.approx(3.582, abs=5e-4)
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("case", ["dtype", "rows", "norms", "stride",
+                                  "device"])
+def test_live_rows_wrapper_refuses(case):
+    """What the kernel does not take raises before any launch (meta tensors
+    stand for the card's)."""
+    sv, rt, nm = _meta(6, 6), _meta(6, 11), _meta(6)
+    err, args = {
+        "dtype": (TypeError, (sv, rt.double(), nm)),
+        "rows": (ValueError, (sv[:5], rt, nm)),
+        "norms": (ValueError, (sv, rt, _meta(5))),
+        "stride": (ValueError, (sv, _meta(11, 6).t(), nm)),
+        "device": (ValueError, (sv, rt, torch.zeros(6)))}[case]
+    before = launch_counts()["verify_rows"]
+    with pytest.raises(err):
+        vkernel.live_rows_cuda(*args, 6)
+    assert launch_counts()["verify_rows"] == before
+
+
+def _rule_cases(rng, n=20, L=13, m=9):
+    """An arena with one fault or sound special case a row: NaN/inf in a
+    list or a rating, a descending pair, a descending subnormal pair,
+    ascending subnormals beside -0.0 and 0.0, equal values, a SENTINEL row,
+    norms NaN, -1, -0.0 and minus the least subnormal."""
+    sv = np.sort(np.round(rng.uniform(-1, 1, (n, L)), 1), axis=1)
+    sv[:, 0], sv[:, -1] = -2.0, 1.0           # a drop at each row boundary
+    rt = rng.integers(0, 6, (n, m)).astype(np.float64)
+    nm = np.sqrt((rt ** 2).sum(axis=1))
+    sv, rt, nm = (a.astype(np.float32) for a in (sv, rt, nm))
+    tiny = np.array([1, 2, 3, 5], dtype=np.uint32).view(np.float32)
+    sv[0, 5], sv[1, -1], rt[2, 0], rt[3, -1] = np.nan, np.inf, -np.inf, np.nan
+    sv[4, 6] = sv[4, 5] - 0.5
+    sv[5], sv[5, :4], sv[5, -4:] = 0.0, [-0.0, 0.0, 0.0, -0.0], tiny
+    sv[6], sv[6, -4:] = 0.0, tiny[::-1]
+    sv[7], sv[8] = 0.25, -2.0
+    nm[9], nm[10], nm[11], nm[12] = np.nan, -1.0, -0.0, -tiny[0]
+    return sv, rt, nm
+
+
+@pytest.mark.parametrize("n_active", [0, 7, 20, 25])
+def test_live_rows_ok_plain_on_cpu_is_the_rule(n_active):
+    """On the CPU ``live_rows_ok`` is the plain version (nothing launches)
+    and equals the reference's per-row rule, over the live rows only."""
+    sv, rt, nm = _rule_cases(np.random.default_rng(n_active))
+    sv[18:], rt[18:] = np.nan, np.nan         # past n_active = 7
+    live = min(n_active, 20)
+    before = launch_counts()["verify_rows"]
+    got = live_rows_ok(torch.as_tensor(sv), torch.as_tensor(rt),
+                       torch.as_tensor(nm), n_active)
+    assert launch_counts()["verify_rows"] == before
+    want = jrow_ok(rt[:live], nm[:live], sv[:live])
+    np.testing.assert_array_equal(got.numpy(), want)
+    if live == 20:
+        assert [i for i in range(18) if not want[i]] == [
+            0, 1, 2, 3, 4, 6, 9, 10, 12]
